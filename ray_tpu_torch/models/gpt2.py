@@ -1,29 +1,33 @@
-"""GPT-2 family in PyTorch: forward, loss value, KV-cache decode and chunked
-prefill (counterpart of `ray_tpu/models/gpt2.py`).
+"""GPT-2 family in PyTorch: forward, loss and its gradients (with remat and
+chunked cross-entropy), KV-cache decode and chunked prefill (counterpart of
+`ray_tpu/models/gpt2.py`).
 
 Layouts are the JAX package's, so the two compare like with like:
 - params are a nested dict of tensors with the same path-keyed names; the
   block params are stacked ``[n_layer, ...]`` and the layers run as a Python
-  loop over that leading dimension;
+  loop over views of that leading dimension (`jax.lax.scan` there);
 - weights multiply as ``x @ W`` with ``W: [in, out]``;
 - attention is ``[B, H, T, Dh]``; the KV cache is ``{"k","v"}:
   [n_layer, B, H, T, Dh]``.
 Params are f32, compute is `cfg.dtype` (bf16 by default), LayerNorm, softmax
-and the loss are f32. Only the forward value is ported: training (gradients,
-remat, chunked CE) comes with the training slice.
+and the loss are f32. Gradients are autograd's; `jax.checkpoint` around each
+block becomes `torch.utils.checkpoint` (see `hidden_states`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, \
+    create_selective_checkpoint_contexts
 
 from ray_tpu_torch.models.lm import cross_entropy, resolve_attn_impl, \
     split_lm_batch
@@ -42,9 +46,18 @@ class GPT2Config:
     max_seq_len: int = 1024
     dtype: Any = torch.bfloat16      # activation/compute dtype
     param_dtype: Any = torch.float32
-    # auto | dense | flash (the CUDA kernel K1); ring/ulysses raise
+    # recompute each block in the backward pass instead of keeping its
+    # activations (jax.checkpoint around the block in the JAX package)
+    remat: bool = True
+    # "full" recomputes everything; "dots" keeps the outputs of the x @ W
+    # products (JAX's dots_with_no_batch_dims_saveable); "dots_all" also
+    # keeps the batched attention products (dots_saveable)
+    remat_policy: str = "full"
+    # auto | dense | flash (the CUDA kernels K1-K3); ring/ulysses raise
     attn_impl: str = "auto"
-    # chunked fused cross-entropy belongs to the training slice; 0 = off
+    # chunked fused cross-entropy: unembed + CE per ce_chunk-token slice,
+    # each slice recomputed in the backward pass, so the [B, T, V] logits
+    # never exist at once. 0 = off (plain unembed + CE)
     ce_chunk: int = 0
 
     @property
@@ -169,15 +182,30 @@ def _layer_norm(x, p, eps=1e-5):
     return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
-def _layer(blocks: Params, i: int) -> Params:
-    """Layer i's params: views into the stacked block tensors."""
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
-            for k, v in blocks.items()}
+def _layers(blocks: Params) -> List[Params]:
+    """Every layer's params: views into the stacked block tensors, one
+    `unbind` per leaf. Its backward is one `stack` per leaf, where indexing
+    layer by layer would scatter each layer's gradient into a zero tensor of
+    the whole stack."""
+    flat = {k: v.unbind(0) for k, v in _flatten(blocks).items()}
+    n = len(next(iter(flat.values())))
+    return [_nest({k: v[i] for k, v in flat.items()}) for i in range(n)]
 
 
 def _qkv(x, p, cfg: GPT2Config):
     qkv = x @ p["wqkv"].to(cfg.dtype) + p["bqkv"].to(cfg.dtype)
     return qkv.split(cfg.d_model, dim=-1)
+
+
+def dense_attention(q, k, v, dtype):
+    """Causal attention of the dense path, q,k,v [B, H, T, Dh]: scores from
+    products in the compute dtype, softmax in f32 for stability."""
+    T, Dh = q.shape[-2:]
+    scores = (q @ k.transpose(-1, -2)).float() / math.sqrt(Dh)
+    causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    scores = torch.where(causal, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return probs @ v
 
 
 def _attention(x, p, cfg: GPT2Config):
@@ -191,13 +219,7 @@ def _attention(x, p, cfg: GPT2Config):
 
         out = flash_attention(q, k, v, True)
     elif impl == "dense":
-        # f32 softmax for stability
-        scores = (q @ k.transpose(-1, -2)).float() / math.sqrt(Dh)
-        causal = torch.ones((T, T), dtype=torch.bool,
-                            device=x.device).tril()
-        scores = torch.where(causal, scores, -1e30)
-        probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
-        out = probs @ v
+        out = dense_attention(q, k, v, cfg.dtype)
     else:
         raise ValueError(f"unknown attn_impl {impl!r}")
     out = out.transpose(1, 2).reshape(B, T, D)
@@ -227,11 +249,42 @@ def unembed(params: Params, x: torch.Tensor, cfg: GPT2Config):
     return x @ params["wte"].T.to(cfg.dtype)
 
 
+# aten products whose outputs a selective remat policy keeps: the x @ W
+# products of a [B, T, D] activation by a weight run as mm (JAX: dots with no
+# batch dims), the attention products q k^T and p v as bmm (batch dims)
+_REMAT_SAVED = {
+    "dots": ("mm", "addmm"),
+    "dots_all": ("mm", "addmm", "bmm", "baddbmm"),
+}
+
+
+def _remat(fn, policy: Optional[str]):
+    """fn under `torch.utils.checkpoint` with the named policy, or fn itself
+    when the policy is None or nothing needs gradients (serving). Like the
+    ``pallas_call`` under jax.checkpoint, the flash kernels are opaque to a
+    selective policy and run again in the recompute."""
+    if policy is None or not torch.is_grad_enabled():
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy not in _REMAT_SAVED:
+        raise ValueError(f"unknown remat_policy {policy!r}; "
+                         f"expected full, {', '.join(_REMAT_SAVED)}")
+    ops = [getattr(torch.ops.aten, name).default
+           for name in _REMAT_SAVED[policy]]
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     ops))
+
+
 def hidden_states(params: Params, tokens: torch.Tensor, cfg: GPT2Config):
     """tokens [B, T] int -> final hidden [B, T, D] (pre-unembed)."""
     x = embed(params, tokens, cfg)
-    for i in range(cfg.n_layer):
-        x = _block(x, _layer(params["blocks"], i), cfg)
+    block_fn = _remat(functools.partial(_block, cfg=cfg),
+                      cfg.remat_policy if cfg.remat else None)
+    for bp in _layers(params["blocks"]):
+        x = block_fn(x, bp)
     return x
 
 
@@ -240,12 +293,38 @@ def forward(params: Params, tokens: torch.Tensor, cfg: GPT2Config):
     return unembed(params, hidden_states(params, tokens, cfg), cfg)
 
 
+def _ce_chunk_sum(x, targets, w):
+    logits = (x @ w).float()
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+
+def chunked_ce(params: Params, x: torch.Tensor, targets: torch.Tensor,
+               cfg: GPT2Config) -> torch.Tensor:
+    """Fused unembed + cross-entropy over ce_chunk-token slices, each under
+    its own checkpoint: peak logits memory drops from [B, T, V] to
+    [B, ce_chunk, V] in the forward and the backward. The same value as
+    unembed + cross_entropy (f32 reductions)."""
+    x = _layer_norm(x, params["ln_f"])
+    w = params["wte"].T.to(cfg.dtype)                      # [D, V]
+    B, T, _ = x.shape
+    C = cfg.ce_chunk
+    if T % C:
+        raise ValueError(f"seq len {T} not divisible by ce_chunk={C}")
+    chunk = _remat(_ce_chunk_sum, "full")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, T, C):
+        total = total + chunk(x[:, c0:c0 + C], targets[:, c0:c0 + C], w)
+    return total / (B * T)
+
+
 def loss_fn(params: Params, batch: dict, cfg: GPT2Config) -> torch.Tensor:
-    """Next-token cross-entropy value. batch = {"tokens": [B,T+1]} or
+    """Next-token cross-entropy. batch = {"tokens": [B,T+1]} or
     {"inputs": [B,T], "targets": [B,T]}."""
-    if cfg.ce_chunk:
-        raise NotImplementedError("ce_chunk comes with the training slice")
     inputs, targets = split_lm_batch(batch)
+    if cfg.ce_chunk:
+        return chunked_ce(params, hidden_states(params, inputs, cfg),
+                          targets, cfg)
     return cross_entropy(forward(params, inputs, cfg), targets)
 
 
@@ -314,8 +393,7 @@ def prefill_chunk(params: Params, cache, tokens: torch.Tensor,
     wt = pos[wb, wc]
     x = wte[tokens] + params["wpe"][pos.clamp(0, cfg.max_seq_len - 1)]
     x = x.to(cfg.dtype)                                          # [B, C, D]
-    for i in range(cfg.n_layer):
-        bp = _layer(params["blocks"], i)
+    for i, bp in enumerate(_layers(params["blocks"])):
         h = _layer_norm(x, bp["ln1"])
         q, k, v = (t.reshape(B, C, H, Dh).transpose(1, 2)
                    for t in _qkv(h, bp["attn"], cfg))           # [B, H, C, Dh]
@@ -341,6 +419,14 @@ def num_params(cfg: GPT2Config) -> int:
                      cfg.max_seq_len)
     per_block = (3 * d * d + 3 * d) + (d * d + d) + (2 * d * f + f + d) + 4 * d
     return V * d + S * d + L * per_block + 2 * d
+
+
+def flops_per_token(cfg: GPT2Config, seq_len: int) -> float:
+    """Approx training FLOPs/token (fwd+bwd ~ 6*N + attention term), the JAX
+    package's count, for MFU against the card's own peak."""
+    n = num_params(cfg) - cfg.vocab_size * cfg.d_model  # non-embedding
+    attn = 12 * cfg.n_layer * cfg.d_model * seq_len
+    return 6 * (n + cfg.vocab_size * cfg.d_model) + attn
 
 
 # ---------------------------------------------------------------------------

@@ -27,10 +27,15 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 # kernel name -> (source file, [(C function, argtypes)])
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 KERNELS = {
     "flash_fwd": ("flash_fwd.cu", [
         ("rt_flash_fwd", [_P, _P, _P, _P, _P] + [_I] * 5 + [_I] * 9
          + [_I, _F, _I, _P]),
+    ]),
+    "flash_bwd": ("flash_bwd.cu", [
+        ("rt_flash_bwd_dq", [_P] * 8 + [_I] * 5 + [_IP, _I, _F, _I, _P]),
+        ("rt_flash_bwd_dkv", [_P] * 8 + [_I] * 5 + [_IP, _I, _F, _I, _P]),
     ]),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -6,9 +6,10 @@ the JAX package, so it also runs on a card's host without them:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
-Tolerances: f32, the reference kernel test's atol=2e-5, rtol=1e-4; bf16,
-one bf16 step (2^-8 relative) of |O|, as 1e-2 + 1e-2*|ref|; lse is f32 in
-both versions.
+Tolerances: forward in f32, the reference kernel test's atol=2e-5,
+rtol=1e-4; gradients in f32, its atol=5e-4, rtol=1e-3; bf16, one bf16 step
+(2^-8 relative) of the value, as 1e-2 + 1e-2*|ref|, since kernel and plain
+version both compute in f32 and round once; lse and Delta are f32 in both.
 """
 
 import numpy as np
@@ -20,6 +21,8 @@ from ray_tpu_torch.ops import flash_attention as P
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
        torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
 TOL_LSE = dict(atol=1e-4, rtol=1e-5)
+TOL_GRAD = {torch.float32: dict(atol=5e-4, rtol=1e-3),
+            torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
 
 
 @pytest.fixture
@@ -67,13 +70,77 @@ def test_k1_takes_strided_inputs(cuda):
     torch.testing.assert_close(out, want, atol=0, rtol=0)
 
 
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+
+
 @pytest.mark.cuda
-def test_k1_refuses_grad(cuda):
-    q, k, v = (t.requires_grad_() for t in _qkv(cuda, torch.float32, T=64))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        P.flash_attention(q, k, v)
-    with torch.no_grad():
-        P.flash_attention(q, k, v)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,T,Tk,D", [
+    (True, 256, 256, 64), (False, 128, 128, 32), (True, 200, 200, 128),
+    (False, 64, 256, 64), (True, 1024, 1024, 64)])
+def test_k2_k3_match_plain_version(cuda, dtype, causal, T, Tk, D):
+    q, k, v = _qkv(cuda, dtype, T=T, Tk=Tk, D=D)
+    do = _qkv(cuda, dtype, T=T, D=D, seed=8)[0]
+    out, lse = P.flash_attention_fwd(q, k, v, causal, block_q=T, block_k=Tk)
+    before = (P.flash_attention_bwd_dq.launches,
+              P.flash_attention_bwd_dkv.launches)
+    dq, delta = P.flash_attention_bwd_dq(q, k, v, out, lse, do, causal,
+                                         block_q=T, block_k=Tk)
+    dk, dv = P.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                       block_q=T, block_k=Tk)
+    torch.cuda.synchronize()
+    assert (P.flash_attention_bwd_dq.launches,
+            P.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    ref = P.flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
+                                          None, T, Tk)
+    for got, want in zip((dq, dk, dv), ref):
+        assert got.dtype == dtype and got.shape == want.shape
+        _close(got, want, TOL_GRAD[dtype])
+    _close(delta, (do.float() * out.float()).sum(-1), TOL_LSE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_k1_k2_k3_grads_match_mha_reference(cuda, causal):
+    # dO as autograd hands it over after transpose(1, 2).reshape: a strided
+    # view, read by the kernels through its strides
+    B, H, T, D = 2, 4, 256, 64
+    q, k, v = (t.requires_grad_() for t in _qkv(cuda, torch.float32, T=T))
+    do = torch.randn((B, T, H, D), device=cuda).transpose(1, 2)
+    grads = [torch.autograd.grad(fn(q, k, v, causal), (q, k, v), do)
+             for fn in (P.flash_attention, P.mha_reference)]
+    for got, want in zip(*grads):
+        _close(got, want, TOL_GRAD[torch.float32])
+
+
+@pytest.mark.cuda
+def test_backward_launches_each_kernel_once(cuda):
+    q, k, v = (t.requires_grad_() for t in _qkv(cuda, torch.bfloat16, T=128))
+    counters = (P.flash_attention, P.flash_attention_bwd_dq,
+                P.flash_attention_bwd_dkv)
+    before = [f.launches for f in counters]
+    P.flash_attention(q, k, v).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    assert q.grad.dtype == k.grad.dtype == v.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+def test_k2_k3_take_strided_inputs(cuda):
+    # the same values laid out as the model makes them: bit-equal gradients
+    B, T, H, D = 2, 128, 4, 64
+    qkv = torch.randn((B, T, 3, H, D), device=cuda)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = torch.randn((B, T, H, D), device=cuda).transpose(1, 2)
+    out, lse = P.flash_attention_fwd(q, k, v)
+    got = P.flash_attention_bwd(q, k, v, out, lse, do)
+    want = P.flash_attention_bwd(*(t.contiguous() for t in (q, k, v)), out,
+                                 lse, do.contiguous())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
 
 
 @pytest.mark.cuda

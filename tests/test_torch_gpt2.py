@@ -115,8 +115,10 @@ def test_loss_matches_jax(weights, key):
     want = float(J.loss_fn(jp, jb, _jcfg()))
     got = float(P.loss_fn(pp, pb, _pcfg()))
     assert got == pytest.approx(want, abs=1e-5)
-    with pytest.raises(NotImplementedError):
-        P.loss_fn(pp, pb, _pcfg(ce_chunk=8))
+    # chunked cross-entropy: the same value, 8 tokens at a time
+    want = float(J.loss_fn(jp, jb, _jcfg(ce_chunk=8)))
+    assert float(P.loss_fn(pp, pb, _pcfg(ce_chunk=8))) == \
+        pytest.approx(want, abs=1e-5)
 
 
 def test_cross_entropy_matches_jax():

@@ -36,5 +36,6 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     for want in ("ray_tpu_torch.ops.flash_attention",
                  "ray_tpu_torch.ops._kernels", "ray_tpu_torch.models.gpt2",
                  "ray_tpu_torch.serve.llm", "ray_tpu_torch.serve.kv_cache",
-                 "ray_tpu_torch.utils.platform", "chip_smoke"):
+                 "ray_tpu_torch.utils.platform", "ray_tpu_torch.train",
+                 "ray_tpu_torch.train.spmd", "chip_smoke"):
         assert want in res["imported"]
