@@ -5,13 +5,16 @@
 
 Phases, each reported on its own line:
 1. build every CUDA kernel of the port from ray_tpu_torch/csrc with nvcc
-   (sm_90a), and print the card's name and power limit;
+   (sm_90a), print the card's name and power limit, and each kernel
+   instantiation's registers and spills (ptxas -v) and tensor-core
+   instructions (cuobjdump -sass);
 2. hold each kernel (K1 forward, K2 dQ, K3 dK/dV) against its plain PyTorch
    version on the card, at the shapes and strides the main paths give it
    (training: B=24, q/k/v split from the QKV product, dO transposed) and a
    few more, hold the K1+K2+K3 gradients against autograd through
-   mha_reference, and time kernel, plain version and the library call that
-   computes the same function;
+   mha_reference, check that two K3 runs give the same bits, and time
+   kernel, plain version and the library call that computes the same
+   function;
 3. attention forward + backward at B=4 H=12 Dh=64 bf16 causal for
    T in {1024, 2048, 4096}: the flash kernels against SDPA and the dense
    path;
@@ -41,7 +44,9 @@ import collections
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -64,9 +69,12 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # Kernel vs its plain version (the same online-softmax arithmetic in f32).
-# f32: the reference kernel test's own tolerance. bf16: the two differ only
-# where an f32 value rounds to the other side of a bf16 step, one ulp
-# (2^-8 relative) of |O| <= ~4, so 1e-2 + 1e-2*|ref|; lse is f32 in both.
+# f32: the reference kernel test's own tolerance (the f32 route is f32 FMAs,
+# no TF32). bf16: the tensor-core K1 rounds P to bf16 once more before its
+# product with V (f32 accumulation), which adds about 2^-9 relative per term,
+# random in sign, so the sum of P V moves by far less than one bf16 step of
+# O; O itself rounds once to bf16 (2^-8 relative of |O| <= ~4). Both fit in
+# 1e-2 + 1e-2*|ref|; lse is f32 in both (l sums the f32 P).
 TOL_PLAIN = {torch.float32: dict(atol=2e-5, rtol=1e-4),
              torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
 TOL_LSE = dict(atol=1e-4, rtol=1e-5)
@@ -77,7 +85,10 @@ TOL_MHA = {torch.float32: dict(atol=2e-5, rtol=1e-4),
            torch.bfloat16: dict(atol=5e-2, rtol=2e-2)}
 # K2/K3 vs their plain versions (the same blockwise arithmetic in f32): f32,
 # the reference's gradient tolerance (tests/test_ops_attention.py); bf16,
-# as for K1: both round dQ, dK, dV once from f32, one bf16 step apart.
+# as for K1: both round dQ, dK, dV once from f32, one bf16 step apart, and
+# the tensor-core K3 rounds P^T and dS^T to bf16 before their products with
+# dO and Q (f32 accumulation): about 2^-9 relative per term, random in sign,
+# far below 1e-2 in the sums.
 TOL_GRAD_PLAIN = {torch.float32: dict(atol=5e-4, rtol=1e-3),
                   torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
 # K1+K2+K3 gradients vs autograd through mha_reference: f32, the reference's
@@ -133,6 +144,9 @@ KERNEL_CASES = [
     ("f32", 2, 12, 1024, 64, torch.float32, True, False),
     ("dh32", 2, 4, 256, 32, torch.bfloat16, True, False),
     ("dh128-f32", 2, 4, 256, 128, torch.float32, False, False),
+    ("ragged-t100", 4, 12, 100, 64, torch.bfloat16, True, False),
+    ("dh128", 2, 12, 1024, 128, torch.bfloat16, True, False),
+    ("dh32-non-causal", 2, 4, 256, 32, torch.bfloat16, False, False),
 ]
 
 
@@ -219,37 +233,90 @@ def gpu_line() -> str:
 
 
 # --------------------------------------------------------------- phases
-_PTXAS_NAME = re.compile(
-    r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(13__nv_bfloat16|f)Li(\d+)E")
+# the training main path's K1 and K3 instantiations: they must not spill
+MAIN_PATH_MMA = ("flash_fwd_mma_kernel<bf16, Dh=64>",
+                 "flash_bwd_dkv_mma_kernel<bf16, Dh=64>")
+# a kernel instantiation's mangled name: the FMA kernels are templates on
+# the type and Dh, the tensor-core (mma) ones on Dh alone (bf16)
+_KERNEL_NAME = re.compile(
+    r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_mma)?_kernel)I(13__nv_bfloat16|f)?Li(\d+)E")
 
 
-def _ptxas_summary(log_text: str) -> list:
-    """One line per kernel instantiation from `ptxas -v`: registers and
-    spill bytes."""
-    rows, name = [], None
+def _instantiation(line: str):
+    """'kernel<dtype, Dh=n>' of the kernel named in a line, or None."""
+    m = _KERNEL_NAME.search(line)
+    if m is None:
+        return None
+    kernel, typ, dh = m.groups()
+    bf16 = typ == "13__nv_bfloat16" or (typ is None and "_mma" in kernel)
+    return f"{kernel}<{'bf16' if bf16 else 'f32'}, Dh={dh}>"
+
+
+def _ptxas_summary(log_text: str) -> dict:
+    """{kernel instantiation: (registers, spill store bytes, spill load
+    bytes)} from `ptxas -v`."""
+    rows, name, spill = {}, None, None
     for line in log_text.splitlines():
-        m = _PTXAS_NAME.search(line)
-        if m and ("Compiling entry" in line or "Function properties" in line):
-            dtype = "bf16" if m.group(2) != "f" else "f32"
-            name = f"{m.group(1)}<{dtype}, Dh={m.group(3)}>"
+        inst = _instantiation(line)
+        if inst and ("Compiling entry" in line or "Function properties" in line):
+            name = inst
         elif name and "spill stores" in line:
-            spill = line.strip()
+            spill = tuple(int(x) for x in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
         elif name and "Used" in line and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            rows.append(f"{name}: {regs} registers, {spill}")
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            rows[name] = (regs, *spill)
             name = None
-    return rows or [line.strip() for line in log_text.splitlines()
-                    if "registers" in line or "spill" in line]
+    if not rows:
+        raise AssertionError("no kernel found in ptxas -v's output:\n" + log_text)
+    return rows
+
+
+def _cuobjdump() -> str:
+    found = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    if not os.path.exists(found):
+        raise RuntimeError("cuobjdump not found: the tensor-core instruction "
+                           "count needs the CUDA toolkit's cuobjdump")
+    return found
+
+
+def _tensor_core_counts(lib: str) -> dict:
+    """{kernel instantiation: HMMA/HGMMA instructions} in the SASS of a
+    built library (`cuobjdump -sass`)."""
+    out = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = _instantiation(line)
+            if name:
+                counts[name] = 0
+        elif name and re.search(r"\bH(?:G)?MMA\b", line):
+            counts[name] += 1
+    return counts
 
 
 def phase_build() -> None:
+    """Build every kernel; print registers, spills and tensor-core
+    instructions per instantiation. Fails if a bf16 K1/K3 (tensor-core)
+    instantiation has no tensor-core instruction, or if the main path's
+    (bf16, Dh=64) K1 or K3 spills."""
     t0 = time.perf_counter()
     info = _kernels.build_all()
     log(f"[build] {len(info)} kernel(s) built in "
         f"{time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
     for name, rec in info.items():
-        for row in _ptxas_summary(rec["log"]):
-            log(f"[build] {name}: {row}")
+        for inst, (regs, st, ld) in _ptxas_summary(rec["log"]).items():
+            log(f"[build] {name}: {inst}: {regs} registers, {st} bytes spill "
+                f"stores, {ld} bytes spill loads")
+            if inst in MAIN_PATH_MMA and (st or ld):
+                raise AssertionError(f"{inst} spills")
+        for inst, n in _tensor_core_counts(_kernels._lib_path(name)).items():
+            log(f"[build] {name}: {inst}: {n} tensor-core instructions "
+                f"(HMMA/HGMMA in its SASS)")
+            if "_mma_" in inst and n == 0:  # K1 and K3 in bf16
+                raise AssertionError(f"{inst} has no tensor-core instruction")
 
 
 def _case_inputs(gen, B, H, T, Dh, dtype, model_layout) -> list:
@@ -324,7 +391,11 @@ def phase_backward(gen: torch.Generator) -> tuple:
         out, lse = fa.flash_attention_fwd(q, k, v, causal)
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, causal)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+        # K3 has no atomics and a fixed order of sums: a second run on the
+        # same inputs gives the same bits
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
         torch.cuda.synchronize()
+        k3_same = torch.equal(dk, dk2) and torch.equal(dv, dv2)
         bq = bk = fa.DEFAULT_BLOCK_Q
         ref_dq, ref_delta = fa._bwd_dq_reference(q, k, v, out, lse, do,
                                                  causal, scale, bq, bk)
@@ -365,10 +436,13 @@ def phase_backward(gen: torch.Generator) -> tuple:
             f"bound {b2[0]:.4f} {b2[1]}, {100 * b2[0] / k2_ms:.2f}%), K3 "
             f"{k3_ms:.4f} ms (plain {k3_plain:.4f}, bound {b3[0]:.4f} "
             f"{b3[1]}, {100 * b3[0] / k3_ms:.2f}%), sdpa backward "
-            f"{lib_ms:.4f} ms")
+            f"{lib_ms:.4f} ms; K3 twice bit-equal: {k3_same}")
         if not (ok_dq and ok_dl and ok_dk and ok_dv and all(o for _, o in mha)):
             raise AssertionError(f"K2/K3 {name} disagree with their plain "
                                  f"versions or with mha_reference")
+        if not k3_same:
+            raise AssertionError(f"K3 {name}: two runs on the same inputs "
+                                 f"differ")
         if recs is None:
             recs = (dict(max_abs_err=max(e_dq, e_dl), ms=k2_ms,
                          plain_ms=k2_plain, bound_ms=b2[0], bound_by=b2[1],
@@ -541,8 +615,8 @@ def _zero_counts() -> None:
 
 
 def _kernel_group(name: str) -> str:
-    for key, group in (("flash_fwd_kernel", "K1"), ("flash_bwd_dq_kernel", "K2"),
-                       ("flash_bwd_dkv_kernel", "K3")):
+    for key, group in (("flash_fwd_", "K1"), ("flash_bwd_dq_", "K2"),
+                       ("flash_bwd_dkv_", "K3")):
         if key in name:
             return group
     low = name.lower()

@@ -6,47 +6,47 @@
 //   walk the key tiles up to the causal frontier, recompute
 //   P = exp(q k^T * scale - lse) and accumulate dQ += dS K with
 //   dS = P * (dO V^T - Delta) * scale.
-// - K3 `_bwd_dkv_kernel` -> `flash_bwd_dkv_kernel`: per (batch, head, key
-//   tile), walk the q tiles from the causal start, recompute P and dS and
-//   accumulate dV += P^T dO and dK += dS^T Q.
+// - K3 `_bwd_dkv_kernel` -> `flash_bwd_dkv_mma_kernel` (bf16) and
+//   `flash_bwd_dkv_kernel` (f32): per (batch, head, key tile), walk the q
+//   tiles from the causal start, recompute P and dS and accumulate
+//   dV += P^T dO and dK += dS^T Q.
 // Delta = rowsum(dO * O), which JAX computes with jnp outside its kernels,
 // is a prologue of K2 here: each K2 block sums its own rows (f32) and writes
-// them to a [B, H, Tq] buffer that K3 then reads. All arithmetic is f32;
-// dQ, dK, dV are written once in the input type, as the Pallas kernels do.
+// them to a [B, H, Tq] buffer that K3 then reads. Sums are f32; dQ, dK, dV
+// are written once in the input type, as the Pallas kernels do.
 //
 // Design for this card, not the TPU's:
 // - The TPU kernels keep a whole (b, h) row of K/V (K2) or of Q/dO (K3)
 //   resident in VMEM. A Hopper block has at most 227 KB of shared memory,
-//   so the other side is streamed through shared memory in 64-row tiles.
+//   so the other side is streamed through shared memory in tiles.
 // - Two kernels, as on the TPU: P and dS are recomputed in each, but no
 //   block ever adds into another block's output, so there are no atomics
 //   and the gradients are deterministic, bit for bit, from run to run.
-// - 256 threads a block, four threads to one row of the block's own tile
-//   (a query row in K2, a key row in K3). Each thread computes 16 of a
-//   tile's 64 scores and keeps Dh/4 columns of its row's accumulators
-//   (dQ; or dK and dV) in registers, in f32.
-// - Tiles sit in shared memory as f32 (bf16 widened on load), rows padded
-//   by one float so that the rows a warp reads fall in different banks.
-//   Shared memory is 83 KB (K2) and 100 KB (K3) at Dh=64, 149 KB and 166 KB
-//   at Dh=128, so the launch raises the block's dynamic shared memory limit.
 // - Inputs are read through their batch, head and time strides (unit
 //   stride on Dh): the dO that autograd hands over is a transposed view.
-// - Products are plain f32 FMAs, not tensor cores.
 //
-// What bounds it: at the GPT-2-125M shape (B=4, H=12, T=1024, Dh=64, bf16,
-// causal; 25.2 M kept (q, k) pairs) K2's products (S, dP, dQ: 6 Dh flops a
-// pair) are 9.7 GFLOP, 9.8 us at the bf16 tensor-core rate; it reads q, k,
-// v, O, dO (bf16) and lse and writes dQ and Delta, 38.1 MB, 11.4 us at
-// 3.35 TB/s, so bytes bound it by a little (the Delta prologue adds the
-// read of O). K3 (S, dP, dV, dK: 8 Dh flops a pair) is 12.9 GFLOP, 13.0 us,
-// against q, k, v, dO, lse, Delta in and dK, dV out, 38.1 MB, 11.4 us:
-// operations bound it. This first version does the products as f32 FMAs
-// with two shared-memory loads per FMA and is far above both floors; mma/
-// wgmma on the tensor cores, TMA loads and one fused dK/dV/dQ pass are the
-// later steps.
+// What bounds them, at the training shape (B=24, H=12, T=1024, Dh=64,
+// bf16, causal; 151 M kept (q, k) pairs): K2's products (S, dP, dQ: 6 Dh
+// flops a pair) are 58.0 GFLOP, 58.7 us at the bf16 tensor-core rate,
+// against 229 MB read and written (q, k, v, O, dO, dQ, lse, Delta), 68.3 us
+// at 3.35 TB/s: bytes bound it. K3's (S, dP, dV, dK: 8 Dh flops a pair) are
+// 77.4 GFLOP, 78.2 us, against 229 MB, 68.3 us: operations bound it.
+//
+// The first design, which K2 and K3's f32 route keep: 256 threads a block,
+// four threads to one row of the block's own 64-row tile, each computing 16
+// of a tile's 64 scores and keeping Dh/4 accumulator columns in f32
+// registers; tiles widened to f32 in shared memory, rows padded by one
+// float; every product a scalar FMA with two shared-memory loads, which
+// shared memory's 128 B/clk an SM holds near 9 TFLOP/s, 1 % of the bound.
+// K3 for bf16 now runs on the tensor cores (`flash_bwd_dkv_mma_kernel`,
+// below): bf16 tiles by cp.async, ldmatrix into mma.sync. K2 keeps the FMA
+// design in both types until its own redesign; TF32 would break the
+// reference's f32 tolerances, so f32 stays on FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tc_common.cuh"
 
 namespace {
 
@@ -197,13 +197,13 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   }
 }
 
-// K3. Strides: q, k, v, dout. dk, dv: contiguous [B, H, Tk, DH]; lse, delta:
-// contiguous [B, H, Tq] f32.
-template <typename T, int DH>
+// K3, f32. Strides: q, k, v, dout. dk, dv: contiguous [B, H, Tk, DH]; lse,
+// delta: contiguous [B, H, Tq] f32.
+template <int DH>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
     int H, int Tq, int Tk, Strides st, int causal, float scale) {
   constexpr int LD = DH + 1;
   constexpr int LDP = BQ + 1;
@@ -230,8 +230,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   const long long bd_ = (long long)b * st.s[9] + (long long)h * st.s[10];
   const long long rows = ((long long)b * H + h) * Tq;  // lse/delta row 0
 
-  load_tile<T, DH>(sK, k + bk_, st.s[5], k0, Tk, 1.f);
-  load_tile<T, DH>(sV, v + bv_, st.s[8], k0, Tk, 1.f);
+  load_tile<float, DH>(sK, k + bk_, st.s[5], k0, Tk, 1.f);
+  load_tile<float, DH>(sV, v + bv_, st.s[8], k0, Tk, 1.f);
 
   const int kpos = k0 + r;
   float dk_acc[CPT], dv_acc[CPT];
@@ -244,8 +244,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   for (int iq = start_qb; iq < num_qb; ++iq) {
     const int q0 = iq * BQ;
     __syncthreads();  // the previous tile's Q, dO, P, dS, lse, Delta are no longer read
-    load_tile<T, DH>(sQ, q + bq_, st.s[2], q0, Tq, scale);
-    load_tile<T, DH>(sDO, dout + bd_, st.s[11], q0, Tq, 1.f);
+    load_tile<float, DH>(sQ, q + bq_, st.s[2], q0, Tq, scale);
+    load_tile<float, DH>(sDO, dout + bd_, st.s[11], q0, Tq, 1.f);
     if (tid < BQ) {
       const int t = q0 + tid;
       sL[tid] = t < Tq ? lse[rows + t] : 0.f;
@@ -291,10 +291,209 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     const long long row = (((long long)b * H + h) * Tk + kpos) * DH;
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
-      dk[row + sub + TPR * i] = from_f32<T>(dk_acc[i]);
-      dv[row + sub + TPR * i] = from_f32<T>(dv_acc[i]);
+      dk[row + sub + TPR * i] = dk_acc[i];
+      dv[row + sub + TPR * i] = dv_acc[i];
     }
   }
+}
+
+// K3, bf16, on the tensor cores. Each block owns 64 keys, four warps of 16
+// key rows; q and dO tiles of BQ rows stream in double-buffered with
+// cp.async, with their lse and Delta. Per tile each warp computes the
+// transposed scores, as FA2's dK/dV kernel does: S^T = K Q^T and dP^T =
+// V dO^T with K, V as A operands and Q, dO as non-transposed ldmatrix B
+// operands; P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - Delta) in f32
+// fragments, rounded to bf16 in registers as the A operands of dV += P^T dO
+// and dK += dS^T Q, which take dO and Q through ldmatrix.trans. dK is
+// multiplied by scale once, in f32, before the store. dK and dV stay in f32
+// registers, no block writes another's rows, and the order of every sum is
+// fixed: the output is the same bit for bit from run to run.
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int DH>
+struct DkvMmaCfg {
+  static constexpr int NW = 4, NT = 128;
+  static constexpr int BK = 64;                   // keys per block, 16 a warp
+  static constexpr int BQ = DH == 128 ? 32 : 64;  // q rows per streamed tile
+  // K/V A fragments in registers at Dh <= 64; at Dh = 128 dK and dV alone
+  // take 128 registers a thread, so K and V are read from shared memory
+  static constexpr bool KV_REGS = DH <= 64;
+  static constexpr int LD = rt_tc::Tile<DH>::LD;
+  // sK, sV [BK][LD] (later dK/dV's staging), sQ, sDO [2][BQ][LD], bf16;
+  // lse and Delta [2][BQ], f32
+  static constexpr size_t smem =
+      sizeof(__nv_bfloat16) * (2 * BK + 4 * BQ) * LD + sizeof(float) * 4 * BQ;
+};
+static_assert(DkvMmaCfg<64>::BK % DkvMmaCfg<64>::BQ == 0 &&
+              DkvMmaCfg<128>::BK % DkvMmaCfg<128>::BQ == 0,
+              "the causal start k0 / BQ needs BQ to divide BK");
+
+template <int DH>
+__global__ void __launch_bounds__(DkvMmaCfg<DH>::NT) flash_bwd_dkv_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    int H, int Tq, int Tk, Strides st, int causal, float scale) {
+  using bf16 = __nv_bfloat16;
+  using C = DkvMmaCfg<DH>;
+  using namespace rt_tc;
+  constexpr int BQ = C::BQ, BK = C::BK, NT = C::NT, LD = C::LD;
+  constexpr int KD = DH / 16;  // k16 steps of S^T = K Q^T
+  constexpr int ND = DH / 8;   // n8 tiles of dK, dV
+  constexpr int NQ = BQ / 8;   // n8 tiles of S^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + BK * LD;
+  bf16* sQ = sV + BK * LD;          // [2][BQ][LD]
+  bf16* sDO = sQ + 2 * BQ * LD;     // [2][BQ][LD]
+  float* sL = reinterpret_cast<float*>(sDO + 2 * BQ * LD);  // [2][BQ]
+  float* sD = sL + 2 * BQ;                                  // [2][BQ]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * BK;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const bf16* qb = q + (long long)b * st.s[0] + (long long)h * st.s[1];
+  const bf16* kb = k + (long long)b * st.s[3] + (long long)h * st.s[4];
+  const bf16* vb = v + (long long)b * st.s[6] + (long long)h * st.s[7];
+  const bf16* db = dout + (long long)b * st.s[9] + (long long)h * st.s[10];
+  const long long bh = (long long)b * H + h;
+  const float* lb = lse + bh * Tq;
+  const float* deb = delta + bh * Tq;
+  const int wk0 = k0 + 16 * warp;  // the warp's first key row
+  const int key0 = wk0 + g;        // this thread's keys: key0, key0 + 8
+
+  const int num_qb = (Tq + BQ - 1) / BQ;
+  const int start_qb = causal ? k0 / BQ : 0;  // the first tile with q >= k0
+
+  // q tile iq of the stream (rows, lse, Delta) into buffer `buf`
+  auto load_q_tile = [&](int iq, int buf) {
+    const int q0 = iq * BQ;
+    load_tile_async<BQ, DH, NT>(sQ + buf * BQ * LD, qb, st.s[2], q0, Tq);
+    load_tile_async<BQ, DH, NT>(sDO + buf * BQ * LD, db, st.s[11], q0, Tq);
+    if (tid < 2 * BQ) {
+      const int r = tid % BQ, t = q0 + r;
+      const bool ok = t < Tq;
+      const float* src = tid < BQ ? lb : deb;
+      cp_async_4((tid < BQ ? sL : sD) + buf * BQ + r, ok ? src + t : src, ok ? 4 : 0);
+    }
+  };
+
+  load_tile_async<BK, DH, NT>(sK, kb, st.s[5], k0, Tk);
+  load_tile_async<BK, DH, NT>(sV, vb, st.s[8], k0, Tk);
+  if (start_qb < num_qb) load_q_tile(start_qb, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const bf16* wK = sK + 16 * warp * LD;  // the warp's 16 key rows
+  const bf16* wV = sV + 16 * warp * LD;
+  const int a_off = (lane & 15) * LD + (lane >> 4) * 8;  // A-operand ldmatrix
+  uint32_t kf[C::KV_REGS ? KD : 1][4], vf[C::KV_REGS ? KD : 1][4];
+  if constexpr (C::KV_REGS) {
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      ldmatrix_x4(kf[kd], wK + a_off + 16 * kd);
+      ldmatrix_x4(vf[kd], wV + a_off + 16 * kd);
+    }
+  }
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  const float sl2 = scale * LOG2E;
+
+  for (int iq = start_qb; iq < num_qb; ++iq) {
+    const int q0 = iq * BQ, buf = (iq - start_qb) & 1;
+    if (iq + 1 < num_qb) {  // the next tile streams in while this one computes
+      load_q_tile(iq + 1, buf ^ 1);
+      cp_async_commit();
+    }
+    const bf16* cQ = sQ + buf * BQ * LD;
+    const bf16* cDO = sDO + buf * BQ * LD;
+    const float* cL = sL + buf * BQ;
+    const float* cD = sD + buf * BQ;
+    // a tile wholly below the causal diagonal of all 16 keys (every q < every
+    // key) adds nothing, so the warp skips it
+    if (!(causal && wk0 > q0 + BQ - 1)) {
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t ka[4], va[4];
+        if constexpr (C::KV_REGS) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) ka[i] = kf[kd][i], va[i] = vf[kd][i];
+        } else {
+          ldmatrix_x4(ka, wK + a_off + 16 * kd);
+          ldmatrix_x4(va, wV + a_off + 16 * kd);
+        }
+        const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * LD + 16 * kd + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {  // q rows 16 np .. 16 np + 15
+          uint32_t bq[4], bo[4];
+          ldmatrix_x4(bq, cQ + 16 * np * LD + b_off);
+          mma_bf16(s[2 * np], ka, bq[0], bq[1]);
+          mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
+          ldmatrix_x4(bo, cDO + 16 * np * LD + b_off);
+          mma_bf16(dp[2 * np], va, bo[0], bo[1]);
+          mma_bf16(dp[2 * np + 1], va, bo[2], bo[3]);
+        }
+      }
+      const bool edge = q0 + BQ > Tq || (causal && wk0 + 15 > q0);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const int c = 8 * n + 2 * t4;  // this thread's columns c, c + 1
+        const float2 l2 = *reinterpret_cast<const float2*>(cL + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(cD + c);
+        const float nl[2] = {-l2.x * LOG2E, -l2.y * LOG2E};  // -lse in log2 units
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(s[n][e], sl2, nl[e & 1]));
+          if (edge) {
+            const int qpos = q0 + c + (e & 1);
+            if (qpos >= Tq || (causal && key0 + 8 * (e >> 1) > qpos)) p = 0.f;
+          }
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - ((e & 1) ? d2.y : d2.x));
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {  // P^T and dS^T rounded to bf16
+        uint32_t pa[4], da[4];
+        scores_to_a(pa, s, kk);
+        scores_to_a(da, dp, kk);
+        const int t_off = (16 * kk + (lane & 15)) * LD + (lane >> 4) * 8;
+#pragma unroll
+        for (int np = 0; np < ND / 2; ++np) {  // columns 16 np .. 16 np + 15
+          uint32_t bo[4], bq[4];
+          ldmatrix_x4_trans(bo, cDO + t_off + 16 * np);
+          mma_bf16(dv_acc[2 * np], pa, bo[0], bo[1]);
+          mma_bf16(dv_acc[2 * np + 1], pa, bo[2], bo[3]);
+          ldmatrix_x4_trans(bq, cQ + t_off + 16 * np);
+          mma_bf16(dk_acc[2 * np], da, bq[0], bq[1]);
+          mma_bf16(dk_acc[2 * np + 1], da, bq[2], bq[3]);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the next tile has landed and this one is no longer read
+  }
+
+  // dK and dV go out through the warp's own 16 rows of sK and sV
+  bf16* rk = sK + 16 * warp * LD;
+  bf16* rv = sV + 16 * warp * LD;
+  acc_to_rows<DH>(rk, dk_acc, scale, scale, lane);
+  acc_to_rows<DH>(rv, dv_acc, 1.f, 1.f, lane);
+  __syncwarp();
+  store_rows<DH>(dk + bh * Tk * DH, rk, wk0, Tk, lane);
+  store_rows<DH>(dv + bh * Tk * DH, rv, wk0, Tk, lane);
 }
 
 template <typename T, int DH>
@@ -314,20 +513,39 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
   return cudaGetLastError();
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dk, void* dv,
                        int B, int H, int Tq, int Tk, const Strides& st, int causal,
                        float scale, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dkv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Tk + BK - 1) / BK, H, B);
-  flash_bwd_dkv_kernel<T, DH><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+  flash_bwd_dkv_kernel<DH><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
       H, Tq, Tk, st, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* delta, void* dk, void* dv,
+                           int B, int H, int Tq, int Tk, const Strides& st, int causal,
+                           float scale, cudaStream_t stream) {
+  using C = DkvMmaCfg<DH>;
+  using bf16 = __nv_bfloat16;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Tk + C::BK - 1) / C::BK, H, B);
+  flash_bwd_dkv_mma_kernel<DH><<<grid, C::NT, C::smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, Tq, Tk, st, causal, scale);
   return cudaGetLastError();
 }
 
@@ -367,8 +585,10 @@ extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v, cons
 }
 
 // q, k, v, dout: [B, H, T, Dh] with unit stride on Dh; `strides` holds their
-// batch, head and time element strides (12 ints). lse, delta: contiguous
+// batch, head and time element strides (12 ints; bf16: base addresses and
+// strides in bytes multiples of 16, for cp.async). lse, delta: contiguous
 // [B, H, Tq] f32. Writes dk, dv (contiguous [B, H, Tk, Dh], the input type).
+// dtype 0 = float32 (FMA body), 1 = bfloat16 (tensor-core body).
 extern "C" int rt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* delta,
                                 void* dk, void* dv, int B, int H, int Tq, int Tk, int Dh,
@@ -378,16 +598,16 @@ extern "C" int rt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-#define RT_DKV(T, DH) launch_dkv<T, DH>(q, k, v, dout, l, dl, dk, dv, B, H, Tq, Tk, st, causal, scale, s)
-  if (dtype == 0) {
-    if (Dh == 32) return (int)RT_DKV(float, 32);
-    if (Dh == 64) return (int)RT_DKV(float, 64);
-    if (Dh == 128) return (int)RT_DKV(float, 128);
-  } else if (dtype == 1) {
-    if (Dh == 32) return (int)RT_DKV(__nv_bfloat16, 32);
-    if (Dh == 64) return (int)RT_DKV(__nv_bfloat16, 64);
-    if (Dh == 128) return (int)RT_DKV(__nv_bfloat16, 128);
+#define RT_DKV_ARGS (q, k, v, dout, l, dl, dk, dv, B, H, Tq, Tk, st, causal, scale, s)
+  if (dtype == 0) {  // f32: the FMA body
+    if (Dh == 32) return (int)launch_dkv<32> RT_DKV_ARGS;
+    if (Dh == 64) return (int)launch_dkv<64> RT_DKV_ARGS;
+    if (Dh == 128) return (int)launch_dkv<128> RT_DKV_ARGS;
+  } else if (dtype == 1) {  // bf16: the tensor-core body
+    if (Dh == 32) return (int)launch_dkv_mma<32> RT_DKV_ARGS;
+    if (Dh == 64) return (int)launch_dkv_mma<64> RT_DKV_ARGS;
+    if (Dh == 128) return (int)launch_dkv_mma<128> RT_DKV_ARGS;
   }
-#undef RT_DKV
+#undef RT_DKV_ARGS
   return (int)cudaErrorInvalidValue;
 }

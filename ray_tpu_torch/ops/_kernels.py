@@ -3,11 +3,11 @@
 Each source in ``ray_tpu_torch/csrc`` is compiled by ``nvcc`` for sm_90a into
 a shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). Libraries go to
-``ray_tpu_torch/_build/`` (ignored by git), named by a hash of the source and
-the flags, so an edited source is rebuilt and never confused with an old
-library. Nothing is built at import: the first launch builds, or a caller
-builds every kernel at once with `build_all` (one ``nvcc`` per source, all
-started together).
+``ray_tpu_torch/_build/`` (ignored by git), named by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or header
+is rebuilt and never confused with an old library. Nothing is built at
+import: the first launch builds, or a caller builds every kernel at once with
+`build_all` (one ``nvcc`` per source, all started together).
 """
 
 from __future__ import annotations
@@ -60,17 +60,22 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, KERNELS[name][0])
+    """The library's path, named by a hash of its source, every shared
+    header in csrc (a source may include any of them) and the flags."""
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [KERNELS[name][0]] + headers:
+        h.update(fname.encode())
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build_all(names: Optional[list] = None) -> Dict[str, dict]:
     """Build the named kernels (all by default) that are not built yet, one
-    ``nvcc`` process per source, started together. Returns `build_info`."""
+    ``nvcc`` process per source, started together. Returns `build_info`; a
+    library built earlier reports the log of its build, kept beside it."""
     names = list(KERNELS) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
@@ -78,7 +83,9 @@ def build_all(names: Optional[list] = None) -> Dict[str, dict]:
     for name in names:
         out = _lib_path(name)
         if os.path.exists(out):
-            build_info.setdefault(name, {"seconds": 0.0, "log": "cached"})
+            if name not in build_info:
+                with open(f"{out}.log") as f:
+                    build_info[name] = {"seconds": 0.0, "log": f.read()}
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
@@ -93,6 +100,8 @@ def build_all(names: Optional[list] = None) -> Dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
             continue
+        with open(f"{out}.log", "w") as f:
+            f.write(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -4,7 +4,8 @@ versions, and the autograd glue between them.
 Counterpart of `ray_tpu/ops/flash_attention.py`. Its three Pallas kernels are
 each a CUDA kernel here: the forward K1 (`_fwd_kernel`) is
 `csrc/flash_fwd.cu`; the backward K2 (`_bwd_dq_kernel`) and K3
-(`_bwd_dkv_kernel`) are `csrc/flash_bwd.cu`.
+(`_bwd_dkv_kernel`) are `csrc/flash_bwd.cu`. In bf16, K1 and K3 run on the
+tensor cores (mma.sync); K2, and every kernel in f32, on f32 FMAs.
 
 - `flash_attention(q, k, v, causal, scale, block_q, block_k)` keeps the JAX
   signature: q, k, v ``[B, H, T, Dh]`` -> ``[B, H, Tq, Dh]``. It is a
@@ -188,16 +189,36 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, causal: bool = True,
     return dq, dk, dv
 
 
+def _cp_async_ready(t: torch.Tensor) -> bool:
+    """Whether the kernels' 16-byte cp.async copies can read `t` in place:
+    unit stride on the last dim, a base address and batch, head and time
+    strides in bytes that are multiples of 16 (strides of a dim of size 1
+    are never used)."""
+    esz = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s * esz % 16 == 0
+                    for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
+
+
 def _kernel_inputs(*ts):
-    """Check the tensors a kernel reads and give each a unit stride on the
-    last dim; returns (tensors, their batch/head/time element strides)."""
+    """Check the tensors a kernel reads and return them with their
+    batch/head/time element strides.
+
+    The rule: the kernels copy rows in 16-byte chunks (cp.async), so each
+    tensor needs a unit stride on the last dim, a 16-byte-aligned base
+    address and batch, head and time strides in bytes that are multiples of
+    16. A tensor that breaks it is copied into a fresh contiguous one (the
+    allocator aligns it, and with Dh in {32, 64, 128} its strides follow).
+    The model's q/k/v views of the QKV product (time stride 3 * H * Dh) and
+    autograd's transposed dO pass as they are."""
     dtype, device = ts[0].dtype, ts[0].device
     if dtype not in _DTYPES or any(t.dtype != dtype for t in ts):
         raise TypeError(f"flash kernels take float32 or bfloat16 inputs of one "
                         f"dtype, got {[t.dtype for t in ts]}")
     if any(t.device != device for t in ts):
         raise ValueError("flash kernel inputs must be on one device")
-    ts = [t if t.stride(-1) == 1 else t.contiguous() for t in ts]
+    ts = [t if _cp_async_ready(t)
+          else t.clone(memory_format=torch.contiguous_format) for t in ts]
     strides = [s for t in ts for s in t.stride()[:3]]
     if max(strides) >= 2 ** 31:
         raise ValueError("tensor too large for the kernel's 32-bit strides")
