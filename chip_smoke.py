@@ -12,7 +12,8 @@ Phases, each reported on its own line:
    version on the card, at the shapes and strides the main paths give it
    (training: B=24, q/k/v split from the QKV product, dO transposed) and a
    few more, hold the K1+K2+K3 gradients against autograd through
-   mha_reference, check that two K3 runs give the same bits, and time
+   mha_reference, check that two K2 runs and two K3 runs give the same
+   bits, and time
    kernel, plain version and the library call that computes the same
    function;
 3. attention forward + backward at B=4 H=12 Dh=64 bf16 causal for
@@ -86,9 +87,10 @@ TOL_MHA = {torch.float32: dict(atol=2e-5, rtol=1e-4),
 # K2/K3 vs their plain versions (the same blockwise arithmetic in f32): f32,
 # the reference's gradient tolerance (tests/test_ops_attention.py); bf16,
 # as for K1: both round dQ, dK, dV once from f32, one bf16 step apart, and
-# the tensor-core K3 rounds P^T and dS^T to bf16 before their products with
-# dO and Q (f32 accumulation): about 2^-9 relative per term, random in sign,
-# far below 1e-2 in the sums.
+# the tensor-core kernels round their score operands to bf16 before the
+# products that follow (f32 accumulation): K2 dS before dS K, K3 P^T and
+# dS^T before their products with dO and Q. That is about 2^-9 relative per
+# term, random in sign, far below 1e-2 in the sums.
 TOL_GRAD_PLAIN = {torch.float32: dict(atol=5e-4, rtol=1e-3),
                   torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
 # K1+K2+K3 gradients vs autograd through mha_reference: f32, the reference's
@@ -233,8 +235,9 @@ def gpu_line() -> str:
 
 
 # --------------------------------------------------------------- phases
-# the training main path's K1 and K3 instantiations: they must not spill
+# the training main path's K1, K2 and K3 instantiations: they must not spill
 MAIN_PATH_MMA = ("flash_fwd_mma_kernel<bf16, Dh=64>",
+                 "flash_bwd_dq_mma_kernel<bf16, Dh=64>",
                  "flash_bwd_dkv_mma_kernel<bf16, Dh=64>")
 # a kernel instantiation's mangled name: the FMA kernels are templates on
 # the type and Dh, the tensor-core (mma) ones on Dh alone (bf16)
@@ -299,9 +302,9 @@ def _tensor_core_counts(lib: str) -> dict:
 
 def phase_build() -> None:
     """Build every kernel; print registers, spills and tensor-core
-    instructions per instantiation. Fails if a bf16 K1/K3 (tensor-core)
-    instantiation has no tensor-core instruction, or if the main path's
-    (bf16, Dh=64) K1 or K3 spills."""
+    instructions per instantiation. Fails if a bf16 (tensor-core)
+    instantiation of K1, K2 or K3 has no tensor-core instruction, or if the
+    main path's (bf16, Dh=64) K1, K2 or K3 spills."""
     t0 = time.perf_counter()
     info = _kernels.build_all()
     log(f"[build] {len(info)} kernel(s) built in "
@@ -315,7 +318,7 @@ def phase_build() -> None:
         for inst, n in _tensor_core_counts(_kernels._lib_path(name)).items():
             log(f"[build] {name}: {inst}: {n} tensor-core instructions "
                 f"(HMMA/HGMMA in its SASS)")
-            if "_mma_" in inst and n == 0:  # K1 and K3 in bf16
+            if "_mma_" in inst and n == 0:  # K1, K2 and K3 in bf16
                 raise AssertionError(f"{inst} has no tensor-core instruction")
 
 
@@ -391,10 +394,12 @@ def phase_backward(gen: torch.Generator) -> tuple:
         out, lse = fa.flash_attention_fwd(q, k, v, causal)
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, causal)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
-        # K3 has no atomics and a fixed order of sums: a second run on the
-        # same inputs gives the same bits
+        # K2 and K3 have no atomics and a fixed order of sums: a second run
+        # on the same inputs gives the same bits
+        dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, causal)
         dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
         torch.cuda.synchronize()
+        k2_same = torch.equal(dq, dq2) and torch.equal(delta, delta2)
         k3_same = torch.equal(dk, dk2) and torch.equal(dv, dv2)
         bq = bk = fa.DEFAULT_BLOCK_Q
         ref_dq, ref_delta = fa._bwd_dq_reference(q, k, v, out, lse, do,
@@ -436,13 +441,15 @@ def phase_backward(gen: torch.Generator) -> tuple:
             f"bound {b2[0]:.4f} {b2[1]}, {100 * b2[0] / k2_ms:.2f}%), K3 "
             f"{k3_ms:.4f} ms (plain {k3_plain:.4f}, bound {b3[0]:.4f} "
             f"{b3[1]}, {100 * b3[0] / k3_ms:.2f}%), sdpa backward "
-            f"{lib_ms:.4f} ms; K3 twice bit-equal: {k3_same}")
+            f"{lib_ms:.4f} ms; K2 twice bit-equal: {k2_same}, K3 twice "
+            f"bit-equal: {k3_same}")
         if not (ok_dq and ok_dl and ok_dk and ok_dv and all(o for _, o in mha)):
             raise AssertionError(f"K2/K3 {name} disagree with their plain "
                                  f"versions or with mha_reference")
-        if not k3_same:
-            raise AssertionError(f"K3 {name}: two runs on the same inputs "
-                                 f"differ")
+        for kname, same in (("K2", k2_same), ("K3", k3_same)):
+            if not same:
+                raise AssertionError(f"{kname} {name}: two runs on the same "
+                                     f"inputs differ")
         if recs is None:
             recs = (dict(max_abs_err=max(e_dq, e_dl), ms=k2_ms,
                          plain_ms=k2_plain, bound_ms=b2[0], bound_by=b2[1],

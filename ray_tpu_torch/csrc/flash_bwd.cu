@@ -2,10 +2,10 @@
 //
 // Replaces the two Pallas TPU kernels launched by `_bwd` in
 // ray_tpu/ops/flash_attention.py:
-// - K2 `_bwd_dq_kernel` -> `flash_bwd_dq_kernel`: per (batch, head, q tile),
-//   walk the key tiles up to the causal frontier, recompute
-//   P = exp(q k^T * scale - lse) and accumulate dQ += dS K with
-//   dS = P * (dO V^T - Delta) * scale.
+// - K2 `_bwd_dq_kernel` -> `flash_bwd_dq_mma_kernel` (bf16) and
+//   `flash_bwd_dq_kernel` (f32): per (batch, head, q tile), walk the key
+//   tiles up to the causal frontier, recompute P = exp(q k^T * scale - lse)
+//   and accumulate dQ += dS K with dS = P * (dO V^T - Delta) * scale.
 // - K3 `_bwd_dkv_kernel` -> `flash_bwd_dkv_mma_kernel` (bf16) and
 //   `flash_bwd_dkv_kernel` (f32): per (batch, head, key tile), walk the q
 //   tiles from the causal start, recompute P and dS and accumulate
@@ -32,16 +32,15 @@
 // at 3.35 TB/s: bytes bound it. K3's (S, dP, dV, dK: 8 Dh flops a pair) are
 // 77.4 GFLOP, 78.2 us, against 229 MB, 68.3 us: operations bound it.
 //
-// The first design, which K2 and K3's f32 route keep: 256 threads a block,
-// four threads to one row of the block's own 64-row tile, each computing 16
-// of a tile's 64 scores and keeping Dh/4 accumulator columns in f32
-// registers; tiles widened to f32 in shared memory, rows padded by one
-// float; every product a scalar FMA with two shared-memory loads, which
-// shared memory's 128 B/clk an SM holds near 9 TFLOP/s, 1 % of the bound.
-// K3 for bf16 now runs on the tensor cores (`flash_bwd_dkv_mma_kernel`,
-// below): bf16 tiles by cp.async, ldmatrix into mma.sync. K2 keeps the FMA
-// design in both types until its own redesign; TF32 would break the
-// reference's f32 tolerances, so f32 stays on FMAs.
+// bf16 runs on the tensor cores (`flash_bwd_dq_mma_kernel`,
+// `flash_bwd_dkv_mma_kernel`, below): bf16 tiles by cp.async, ldmatrix into
+// mma.sync, f32 accumulators. f32 keeps the first design, since TF32 would
+// break the reference's f32 tolerances: 256 threads a block, four threads
+// to one row of the block's own 64-row tile, each computing 16 of a tile's
+// 64 scores and keeping Dh/4 accumulator columns in f32 registers; tiles
+// widened to f32 in shared memory, rows padded by one float; every product
+// a scalar FMA with two shared-memory loads, which shared memory's 128 B/clk
+// an SM holds near 9 TFLOP/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,24 +64,15 @@ struct Strides {
   int s[15];
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // Copy rows [t0, t0 + 64) of a [T, DH] slice (time stride st) into a padded
 // f32 tile, times `mul`; rows at or past T read as 0.
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long st,
+template <int DH>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long st,
                                           int t0, int Tn, float mul) {
   constexpr int LD = DH + 1;
   for (int idx = threadIdx.x; idx < 64 * DH; idx += NT) {
     const int rr = idx / DH, d = idx % DH, t = t0 + rr;
-    dst[rr * LD + d] = t < Tn ? to_f32(src[(long long)t * st + d]) * mul : 0.f;
+    dst[rr * LD + d] = t < Tn ? src[(long long)t * st + d] * mul : 0.f;
   }
 }
 
@@ -98,13 +88,13 @@ constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (4 * 64 * (DH + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
 }
 
-// K2. Strides: q, k, v, o, dout. dq: contiguous [B, H, Tq, DH]; lse, delta:
-// contiguous [B, H, Tq] f32 (delta is written here).
-template <typename T, int DH>
+// K2, f32. Strides: q, k, v, o, dout. dq: contiguous [B, H, Tq, DH]; lse,
+// delta: contiguous [B, H, Tq] f32 (delta is written here).
+template <int DH>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ o, const T* __restrict__ dout,
-    const float* __restrict__ lse, T* __restrict__ dq, float* __restrict__ delta,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ o, const float* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ dq, float* __restrict__ delta,
     int H, int Tq, int Tk, Strides st, int causal, float scale) {
   constexpr int LD = DH + 1;
   constexpr int LDS = BK + 1;
@@ -128,8 +118,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   const long long bo_ = (long long)b * st.s[9] + (long long)h * st.s[10];
   const long long bd_ = (long long)b * st.s[12] + (long long)h * st.s[13];
 
-  load_tile<T, DH>(sQ, q + bq_, st.s[2], q0, Tq, scale);
-  load_tile<T, DH>(sDO, dout + bd_, st.s[14], q0, Tq, 1.f);
+  load_tile<DH>(sQ, q + bq_, st.s[2], q0, Tq, scale);
+  load_tile<DH>(sDO, dout + bd_, st.s[14], q0, Tq, 1.f);
   __syncthreads();
 
   // Delta prologue: the row's four threads each sum Dh/4 products
@@ -138,11 +128,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   const long long row = ((long long)b * H + h) * Tq + qpos;
   float dl = 0.f;
   if (row_ok) {
-    const T* orow = o + bo_ + (long long)qpos * st.s[11];
+    const float* orow = o + bo_ + (long long)qpos * st.s[11];
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       const int d = sub + TPR * i;
-      dl = fmaf(sDO[r * LD + d], to_f32(orow[d]), dl);
+      dl = fmaf(sDO[r * LD + d], orow[d], dl);
     }
   }
   dl += __shfl_xor_sync(0xffffffffu, dl, 1);
@@ -160,8 +150,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   for (int jk = 0; jk < num_kb; ++jk) {
     const int k0 = jk * BK;
     __syncthreads();  // the previous tile's K, V, dS are no longer read
-    load_tile<T, DH>(sK, k + bk_, st.s[5], k0, Tk, 1.f);
-    load_tile<T, DH>(sV, v + bv_, st.s[8], k0, Tk, 1.f);
+    load_tile<DH>(sK, k + bk_, st.s[5], k0, Tk, 1.f);
+    load_tile<DH>(sV, v + bv_, st.s[8], k0, Tk, 1.f);
     __syncthreads();
 
 #pragma unroll 4
@@ -191,9 +181,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   }
 
   if (row_ok) {
-    T* out = dq + row * DH;
+    float* out = dq + row * DH;
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) out[sub + TPR * i] = from_f32<T>(acc[i]);
+    for (int i = 0; i < CPT; ++i) out[sub + TPR * i] = acc[i];
   }
 }
 
@@ -230,8 +220,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   const long long bd_ = (long long)b * st.s[9] + (long long)h * st.s[10];
   const long long rows = ((long long)b * H + h) * Tq;  // lse/delta row 0
 
-  load_tile<float, DH>(sK, k + bk_, st.s[5], k0, Tk, 1.f);
-  load_tile<float, DH>(sV, v + bv_, st.s[8], k0, Tk, 1.f);
+  load_tile<DH>(sK, k + bk_, st.s[5], k0, Tk, 1.f);
+  load_tile<DH>(sV, v + bv_, st.s[8], k0, Tk, 1.f);
 
   const int kpos = k0 + r;
   float dk_acc[CPT], dv_acc[CPT];
@@ -244,8 +234,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   for (int iq = start_qb; iq < num_qb; ++iq) {
     const int q0 = iq * BQ;
     __syncthreads();  // the previous tile's Q, dO, P, dS, lse, Delta are no longer read
-    load_tile<float, DH>(sQ, q + bq_, st.s[2], q0, Tq, scale);
-    load_tile<float, DH>(sDO, dout + bd_, st.s[11], q0, Tq, 1.f);
+    load_tile<DH>(sQ, q + bq_, st.s[2], q0, Tq, scale);
+    load_tile<DH>(sDO, dout + bd_, st.s[11], q0, Tq, 1.f);
     if (tid < BQ) {
       const int t = q0 + tid;
       sL[tid] = t < Tq ? lse[rows + t] : 0.f;
@@ -297,6 +287,219 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   }
 }
 
+// ------------------------------------------------------ bf16: tensor cores
+constexpr float LOG2E = 1.4426950408889634f;
+
+// K2, bf16, on the tensor cores: K3's design with the roles of q and k
+// swapped. Each block owns 64 q rows, four warps of 16 rows, and q tiles
+// launch heaviest first. The block loads its Q, dO and O tiles once by
+// cp.async (O into the second K buffer), sums Delta = rowsum(dO * O) of its
+// rows in f32 and writes it, then streams 64-key K and V tiles,
+// double-buffered with cp.async, up to the causal frontier. Per tile each
+// warp computes S = Q K^T and dP = dO V^T with Q, dO as A operands and K, V
+// as non-transposed ldmatrix B operands; P = exp(S scale - lse) and dS =
+// P (dP - Delta) in f32 fragments, lse and Delta per row (each thread holds
+// rows g and g + 8); dS rounded to bf16 in registers as the A operand of
+// dQ += dS K, which takes K from the same tile through ldmatrix.trans. dQ
+// stays in f32 registers and is multiplied by scale once, in f32, before
+// the store. No block writes another's rows and the order of every sum is
+// fixed: dQ and Delta are the same bit for bit from run to run.
+template <int DH>
+struct DqMmaCfg {
+  static constexpr int NW = 4, NT = 32 * NW;
+  static constexpr int BQ = 16 * NW;  // q rows per block, 16 a warp
+  static constexpr int BK = 64;       // keys per streamed tile
+  // Q and dO A fragments in registers at Dh <= 64 (32 registers at Dh = 64);
+  // at Dh = 128 dQ alone takes 64 registers a thread, so Q and dO are read
+  // from shared memory each tile
+  static constexpr bool QDO_REGS = DH <= 64;
+  static constexpr int LD = rt_tc::Tile<DH>::LD;
+  // sQ (later dQ's staging), sDO [BQ][LD]; sK, sV [2][BK][LD]; all bf16. O
+  // passes through the second K buffer before the first key tile
+  static constexpr size_t smem = sizeof(__nv_bfloat16) * (2 * BQ + 4 * BK) * LD;
+};
+static_assert(DqMmaCfg<64>::BQ == DqMmaCfg<64>::BK,
+              "O's tile fits a K buffer, and the diagonal tile is the last");
+
+// Strides: q, k, v, o, dout (bf16: base addresses and strides in bytes
+// multiples of 16, for cp.async). dq: contiguous [B, H, Tq, DH]; lse, delta:
+// contiguous [B, H, Tq] f32 (delta is written here).
+template <int DH>
+__global__ void __launch_bounds__(DqMmaCfg<DH>::NT) flash_bwd_dq_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
+    int H, int Tq, int Tk, Strides st, int causal, float scale) {
+  using bf16 = __nv_bfloat16;
+  using C = DqMmaCfg<DH>;
+  using namespace rt_tc;
+  constexpr int BQ = C::BQ, BK = C::BK, NT = C::NT, LD = C::LD;
+  constexpr int KD = DH / 16;  // k16 steps of S = Q K^T and dP = dO V^T
+  constexpr int ND = DH / 8;   // n8 tiles of dQ
+  constexpr int NK = BK / 8;   // n8 tiles of S and dP
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sDO = sQ + BQ * LD;
+  bf16* sK = sDO + BQ * LD;     // [2][BK][LD]
+  bf16* sV = sK + 2 * BK * LD;  // [2][BK][LD]
+  bf16* sO = sK + BK * LD;      // the second K buffer, until the first tile
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  // q tiles in reverse: under causal masking the last tiles are the heaviest
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const bf16* qb = q + (long long)b * st.s[0] + (long long)h * st.s[1];
+  const bf16* kb = k + (long long)b * st.s[3] + (long long)h * st.s[4];
+  const bf16* vb = v + (long long)b * st.s[6] + (long long)h * st.s[7];
+  const bf16* ob = o + (long long)b * st.s[9] + (long long)h * st.s[10];
+  const bf16* db = dout + (long long)b * st.s[12] + (long long)h * st.s[13];
+  const long long bh = (long long)b * H + h;
+  const int wq0 = q0 + 16 * warp;  // the warp's first q row
+  const int row0 = wq0 + g;        // this thread's rows: row0, row0 + 8
+
+  int num_kb = (Tk + BK - 1) / BK;
+  if (causal) num_kb = min(num_kb, (q0 + BQ + BK - 1) / BK);  // causal frontier
+
+  load_tile_async<BQ, DH, NT>(sQ, qb, st.s[2], q0, Tq);
+  load_tile_async<BQ, DH, NT>(sDO, db, st.s[14], q0, Tq);
+  load_tile_async<BQ, DH, NT>(sO, ob, st.s[11], q0, Tq);
+  load_tile_async<BK, DH, NT>(sK, kb, st.s[5], 0, Tk);
+  load_tile_async<BK, DH, NT>(sV, vb, st.s[8], 0, Tk);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Delta prologue: two lanes to each of the warp's 16 rows, each summing
+  // half of the row's dO * O in f32 from the bf16 values; each thread then
+  // takes its rows' sums by shuffle. Rows at or past Tq are zero and are
+  // not written.
+  float dl[2];  // Delta of rows row0, row0 + 8
+  {
+    const int r = lane >> 1, half = lane & 1;
+    const bf16* pd = sDO + (16 * warp + r) * LD + half * (DH / 2);
+    const bf16* po = sO + (16 * warp + r) * LD + half * (DH / 2);
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < DH / 2; c += 8) {
+      const uint4 x8 = *reinterpret_cast<const uint4*>(pd + c);
+      const uint4 y8 = *reinterpret_cast<const uint4*>(po + c);
+      const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x8);
+      const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&y8);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 x = __bfloat1622float2(x2[i]), y = __bfloat1622float2(y2[i]);
+        sum = fmaf(x.x, y.x, sum);
+        sum = fmaf(x.y, y.y, sum);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);  // lanes 2r, 2r + 1: row r's
+    dl[0] = __shfl_sync(0xffffffffu, sum, 2 * g);
+    dl[1] = __shfl_sync(0xffffffffu, sum, 2 * g + 16);
+    if (half == 0 && wq0 + r < Tq) delta[bh * Tq + wq0 + r] = sum;
+  }
+  // -lse of the thread's rows in log2 units (0 past Tq: those rows are zero
+  // and their dQ is never written)
+  const float nl[2] = {row0 < Tq ? -lse[bh * Tq + row0] * LOG2E : 0.f,
+                       row0 + 8 < Tq ? -lse[bh * Tq + row0 + 8] * LOG2E : 0.f};
+
+  const bf16* wQ = sQ + 16 * warp * LD;  // the warp's 16 q rows
+  const bf16* wDO = sDO + 16 * warp * LD;
+  const int a_off = (lane & 15) * LD + (lane >> 4) * 8;  // A-operand ldmatrix
+  uint32_t qf[C::QDO_REGS ? KD : 1][4], df[C::QDO_REGS ? KD : 1][4];
+  if constexpr (C::QDO_REGS) {
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      ldmatrix_x4(qf[kd], wQ + a_off + 16 * kd);
+      ldmatrix_x4(df[kd], wDO + a_off + 16 * kd);
+    }
+  }
+  __syncthreads();  // O is read: the second K buffer is free for tile 1
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float sl2 = scale * LOG2E;
+
+  for (int j = 0; j < num_kb; ++j) {
+    const int k0 = j * BK;
+    if (j + 1 < num_kb) {  // the next tile streams in while this one computes
+      load_tile_async<BK, DH, NT>(sK + ((j + 1) & 1) * BK * LD, kb, st.s[5], k0 + BK, Tk);
+      load_tile_async<BK, DH, NT>(sV + ((j + 1) & 1) * BK * LD, vb, st.s[8], k0 + BK, Tk);
+      cp_async_commit();
+    }
+    const bf16* cK = sK + (j & 1) * BK * LD;
+    const bf16* cV = sV + (j & 1) * BK * LD;
+    // with BQ == BK every tile up to the frontier holds kept pairs for all
+    // four warps, so no warp skips one
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t qa[4], da[4];
+      if constexpr (C::QDO_REGS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = qf[kd][i], da[i] = df[kd][i];
+      } else {
+        ldmatrix_x4(qa, wQ + a_off + 16 * kd);
+        ldmatrix_x4(da, wDO + a_off + 16 * kd);
+      }
+      const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * LD + 16 * kd + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {  // keys 16 np .. 16 np + 15
+        uint32_t bk[4], bv[4];
+        ldmatrix_x4(bk, cK + 16 * np * LD + b_off);
+        mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+        ldmatrix_x4(bv, cV + 16 * np * LD + b_off);
+        mma_bf16(dp[2 * np], da, bv[0], bv[1]);
+        mma_bf16(dp[2 * np + 1], da, bv[2], bv[3]);
+      }
+    }
+    // keys past Tk (zero rows, which would score 0 and give P = exp(-lse))
+    // and keys past the row under causal masking get P = 0 exactly, as
+    // exp(-1e30 - lse) does in the reference; only edge tiles need the test
+    const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > wq0);
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[n][e], sl2, nl[e >> 1]));  // scale on the f32 score
+        if (edge) {
+          const int key = k0 + 8 * n + 2 * t4 + (e & 1);
+          if (key >= Tk || (causal && key > row0 + 8 * (e >> 1))) p = 0.f;
+        }
+        dp[n][e] = p * (dp[n][e] - dl[e >> 1]);  // dS, without its factor scale
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {  // dQ += dS K, dS rounded to bf16
+      uint32_t dsa[4];
+      scores_to_a(dsa, dp, kk);
+      const bf16* kt_row = cK + (16 * kk + (lane & 15)) * LD + (lane >> 4) * 8;
+#pragma unroll
+      for (int np = 0; np < ND / 2; ++np) {  // columns 16 np .. 16 np + 15
+        uint32_t kt[4];
+        ldmatrix_x4_trans(kt, kt_row + 16 * np);
+        mma_bf16(acc[2 * np], dsa, kt[0], kt[1]);
+        mma_bf16(acc[2 * np + 1], dsa, kt[2], kt[3]);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the next tile has landed and this one is no longer read
+  }
+
+  // dQ goes out through the warp's own 16 rows of sQ, times scale in f32
+  bf16* rows = sQ + 16 * warp * LD;
+  acc_to_rows<DH>(rows, acc, scale, scale, lane);
+  __syncwarp();
+  store_rows<DH>(dq + bh * Tq * DH, rows, wq0, Tq, lane);
+}
+
 // K3, bf16, on the tensor cores. Each block owns 64 keys, four warps of 16
 // key rows; q and dO tiles of BQ rows stream in double-buffered with
 // cp.async, with their lse and Delta. Per tile each warp computes the
@@ -308,7 +511,6 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
 // multiplied by scale once, in f32, before the store. dK and dV stay in f32
 // registers, no block writes another's rows, and the order of every sum is
 // fixed: the output is the same bit for bit from run to run.
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DH>
 struct DkvMmaCfg {
@@ -496,20 +698,39 @@ __global__ void __launch_bounds__(DkvMmaCfg<DH>::NT) flash_bwd_dkv_mma_kernel(
   store_rows<DH>(dv + bh * Tk * DH, rv, wk0, Tk, lane);
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const float* lse, void* dq, float* delta,
                       int B, int H, int Tq, int Tk, const Strides& st, int causal,
                       float scale, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dq_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<T, DH><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const T*>(dout), lse, static_cast<T*>(dq),
-      delta, H, Tq, Tk, st, causal, scale);
+  flash_bwd_dq_kernel<DH><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(dout), lse,
+      static_cast<float*>(dq), delta, H, Tq, Tk, st, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const float* lse, void* dq, float* delta,
+                          int B, int H, int Tq, int Tk, const Strides& st, int causal,
+                          float scale, cudaStream_t stream) {
+  using C = DqMmaCfg<DH>;
+  using bf16 = __nv_bfloat16;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Tq + C::BQ - 1) / C::BQ, H, B);
+  flash_bwd_dq_mma_kernel<DH><<<grid, C::NT, C::smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
+      static_cast<bf16*>(dq), delta, H, Tq, Tk, st, causal, scale);
   return cudaGetLastError();
 }
 
@@ -558,10 +779,12 @@ Strides copy_strides(const int* s, int n) {
 }  // namespace
 
 // q, k, v, o, dout: [B, H, T, Dh] with unit stride on Dh; `strides` holds
-// their batch, head and time element strides (15 ints, in that order).
+// their batch, head and time element strides (15 ints, in that order; bf16:
+// base addresses and strides in bytes multiples of 16, for cp.async).
 // lse: contiguous [B, H, Tq] f32. Writes dq (contiguous [B, H, Tq, Dh], the
-// input type) and delta (contiguous [B, H, Tq] f32). dtype 0 = float32,
-// 1 = bfloat16. Returns the cudaError_t of the launch (0 on success).
+// input type) and delta (contiguous [B, H, Tq] f32). dtype 0 = float32 (FMA
+// body), 1 = bfloat16 (tensor-core body). Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                const void* dout, const void* lse, void* dq, void* delta,
                                int B, int H, int Tq, int Tk, int Dh, const int* strides,
@@ -570,17 +793,17 @@ extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v, cons
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-#define RT_DQ(T, DH) launch_dq<T, DH>(q, k, v, o, dout, l, dq, dl, B, H, Tq, Tk, st, causal, scale, s)
-  if (dtype == 0) {
-    if (Dh == 32) return (int)RT_DQ(float, 32);
-    if (Dh == 64) return (int)RT_DQ(float, 64);
-    if (Dh == 128) return (int)RT_DQ(float, 128);
-  } else if (dtype == 1) {
-    if (Dh == 32) return (int)RT_DQ(__nv_bfloat16, 32);
-    if (Dh == 64) return (int)RT_DQ(__nv_bfloat16, 64);
-    if (Dh == 128) return (int)RT_DQ(__nv_bfloat16, 128);
+#define RT_DQ_ARGS (q, k, v, o, dout, l, dq, dl, B, H, Tq, Tk, st, causal, scale, s)
+  if (dtype == 0) {  // f32: the FMA body
+    if (Dh == 32) return (int)launch_dq<32> RT_DQ_ARGS;
+    if (Dh == 64) return (int)launch_dq<64> RT_DQ_ARGS;
+    if (Dh == 128) return (int)launch_dq<128> RT_DQ_ARGS;
+  } else if (dtype == 1) {  // bf16: the tensor-core body
+    if (Dh == 32) return (int)launch_dq_mma<32> RT_DQ_ARGS;
+    if (Dh == 64) return (int)launch_dq_mma<64> RT_DQ_ARGS;
+    if (Dh == 128) return (int)launch_dq_mma<128> RT_DQ_ARGS;
   }
-#undef RT_DQ
+#undef RT_DQ_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

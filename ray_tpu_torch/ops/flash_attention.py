@@ -4,8 +4,8 @@ versions, and the autograd glue between them.
 Counterpart of `ray_tpu/ops/flash_attention.py`. Its three Pallas kernels are
 each a CUDA kernel here: the forward K1 (`_fwd_kernel`) is
 `csrc/flash_fwd.cu`; the backward K2 (`_bwd_dq_kernel`) and K3
-(`_bwd_dkv_kernel`) are `csrc/flash_bwd.cu`. In bf16, K1 and K3 run on the
-tensor cores (mma.sync); K2, and every kernel in f32, on f32 FMAs.
+(`_bwd_dkv_kernel`) are `csrc/flash_bwd.cu`. In bf16 all three run on the
+tensor cores (mma.sync, f32 accumulators); in f32, on f32 FMAs.
 
 - `flash_attention(q, k, v, causal, scale, block_q, block_k)` keeps the JAX
   signature: q, k, v ``[B, H, T, Dh]`` -> ``[B, H, Tq, Dh]``. It is a

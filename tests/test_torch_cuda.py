@@ -150,14 +150,15 @@ def test_k1_refuses_other_dtypes(cuda):
         P.flash_attention(q, k, v)
 
 
-# ---- the tensor-core bodies (bf16 K1 and K3) and the f32 FMA route ----
-# bf16 K1 rounds P, and bf16 K3 rounds P^T and dS^T, to bf16 before a
+# ---- the tensor-core bodies (bf16 K1, K2, K3) and the f32 FMA route ----
+# bf16 K1 rounds P, bf16 K2 dS, and bf16 K3 P^T and dS^T, to bf16 before a
 # product with f32 accumulation (about 2^-9 relative per term, random in
 # sign): well inside the bf16 tolerances above, which stay as they are.
 
 def _k1_k3(q, k, v, do, causal):
-    """K1, K2 and K3 on the card, then the plain K1 and K3 on the same
-    inputs (K3's plain version takes the kernels' lse and Delta)."""
+    """K1, K2 and K3 on the card, then their plain versions on the same
+    inputs (K2's takes the kernels' O and lse, K3's their lse and Delta):
+    ((out, lse, dq, delta, dk, dv), the same from the plain versions)."""
     T, D = q.shape[2], q.shape[3]
     out, lse = P.flash_attention_fwd(q, k, v, causal, block_q=T, block_k=T)
     dq, delta = P.flash_attention_bwd_dq(q, k, v, out, lse, do, causal,
@@ -166,9 +167,18 @@ def _k1_k3(q, k, v, do, causal):
                                        block_q=T, block_k=T)
     torch.cuda.synchronize()
     ref_out, ref_lse = P.flash_attention_reference(q, k, v, causal)
+    ref_dq, ref_delta = P._bwd_dq_reference(q, k, v, out, lse, do, causal,
+                                            D ** -0.5, T, T)
     ref_dk, ref_dv = P._bwd_dkv_reference(q, k, v, do, lse, delta, causal,
                                           D ** -0.5, T, T)
-    return (out, lse, dk, dv), (ref_out, ref_lse, ref_dk, ref_dv)
+    return ((out, lse, dq, delta, dk, dv),
+            (ref_out, ref_lse, ref_dq, ref_delta, ref_dk, ref_dv))
+
+
+def _tols(dtype):
+    """_k1_k3's tolerances, output by output."""
+    return (TOL[dtype], TOL_LSE, TOL_GRAD[dtype], TOL_LSE, TOL_GRAD[dtype],
+            TOL_GRAD[dtype])
 
 
 @pytest.mark.cuda
@@ -176,16 +186,15 @@ def _k1_k3(q, k, v, do, causal):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("T", [100, 384])
 def test_bf16_k1_k3_match_plain_version(cuda, D, causal, T):
-    # T=100: ragged q and key tiles at both ends; 384: several tiles
+    # T=100: ragged q and key tiles at both ends; 384: several tiles.
+    # K2 is held against its plain version here too
     q, k, v = _qkv(cuda, torch.bfloat16, B=2, H=3, T=T, D=D, seed=11)
     do = _qkv(cuda, torch.bfloat16, B=2, H=3, T=T, D=D, seed=12)[0]
-    (out, lse, dk, dv), (r_out, r_lse, r_dk, r_dv) = _k1_k3(q, k, v, do,
-                                                            causal)
-    assert out.dtype == dk.dtype == dv.dtype == torch.bfloat16
-    _close(out, r_out, TOL[torch.bfloat16])
-    _close(lse, r_lse, TOL_LSE)
-    _close(dk, r_dk, TOL_GRAD[torch.bfloat16])
-    _close(dv, r_dv, TOL_GRAD[torch.bfloat16])
+    got, want = _k1_k3(q, k, v, do, causal)
+    out, _, dq, _, dk, dv = got
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    for g, w, tol in zip(got, want, _tols(torch.bfloat16)):
+        _close(g, w, tol)
 
 
 @pytest.mark.cuda
@@ -199,9 +208,7 @@ def test_bf16_k1_k3_take_model_layout(cuda):
     do = torch.randn((B, T, H * D), device=cuda).to(torch.bfloat16)
     do = do.reshape(B, T, H, D).transpose(1, 2)
     got, want = _k1_k3(q, k, v, do, True)
-    for g, w, tol in zip(got, want, (TOL[torch.bfloat16], TOL_LSE,
-                                     TOL_GRAD[torch.bfloat16],
-                                     TOL_GRAD[torch.bfloat16])):
+    for g, w, tol in zip(got, want, _tols(torch.bfloat16)):
         _close(g, w, tol)
     contiguous = _k1_k3(*(t.contiguous() for t in (q, k, v, do)), True)[0]
     for g, c in zip(got, contiguous):
@@ -222,19 +229,28 @@ def test_bf16_k3_is_deterministic(cuda, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_k2_is_deterministic(cuda, D):
+    q, k, v = _qkv(cuda, torch.bfloat16, B=2, H=4, T=512, D=D, seed=19)
+    do = _qkv(cuda, torch.bfloat16, B=2, H=4, T=512, D=D, seed=20)[0]
+    out, lse = P.flash_attention_fwd(q, k, v, True)
+    first = P.flash_attention_bwd_dq(q, k, v, out, lse, do, True)
+    second = P.flash_attention_bwd_dq(q, k, v, out, lse, do, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_f32_stays_on_the_fma_route(cuda):
     # f32 inputs that bf16 cannot hold: the f32 route matches the plain
     # version at the reference's f32 tolerances, which a product in bf16
     # (or TF32) misses, as the same inputs rounded to bf16 show
     q, k, v = _qkv(cuda, torch.float32, B=2, H=4, T=256, D=64, seed=15)
     do = _qkv(cuda, torch.float32, B=2, H=4, T=256, D=64, seed=16)[0]
-    (out, lse, dk, dv), (r_out, r_lse, r_dk, r_dv) = _k1_k3(q, k, v, do,
-                                                            True)
-    _close(out, r_out, TOL[torch.float32])
-    _close(lse, r_lse, TOL_LSE)
-    _close(dk, r_dk, TOL_GRAD[torch.float32])
-    _close(dv, r_dv, TOL_GRAD[torch.float32])
+    got, want = _k1_k3(q, k, v, do, True)
+    for g, w, tol in zip(got, want, _tols(torch.float32)):
+        _close(g, w, tol)
     rounded = [t.to(torch.bfloat16).float() for t in (q, k, v)]
     with pytest.raises(AssertionError):
-        _close(P.flash_attention_fwd(*rounded, True)[0], r_out,
+        _close(P.flash_attention_fwd(*rounded, True)[0], want[0],
                TOL[torch.float32])

@@ -1,13 +1,14 @@
-"""The tensor-core redesign of K1 and K3, checked on the CPU.
+"""The tensor-core redesign of K1, K2 and K3, checked on the CPU.
 
 - The wrappers' 16-byte rule for the kernels' cp.async copies: which inputs
   are read in place and which are copied.
 - The redesign's extra rounding: bf16 K1 rounds P to bf16 before its
-  product with V, and bf16 K3 rounds P^T and dS^T to bf16 before their
-  products with dO and Q, each with f32 accumulation. Plain emulations of
-  those two bodies, on bf16-valued inputs at gpt2-tiny sizes, stay within
-  chip_smoke.py's unchanged bf16 tolerances of the plain versions in f32:
-  the tolerances the card's kernels are held to.
+  product with V, bf16 K2 rounds dS to bf16 before its product with K, and
+  bf16 K3 rounds P^T and dS^T to bf16 before their products with dO and Q,
+  each with f32 accumulation. Plain emulations of those three bodies, on
+  bf16-valued inputs at gpt2-tiny sizes, stay within chip_smoke.py's
+  unchanged bf16 tolerances of the plain versions in f32: the tolerances
+  the card's kernels are held to.
 - The kernel library's name follows the shared headers as well as the
   source.
 
@@ -20,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import TOL_GRAD_PLAIN, TOL_PLAIN
+from chip_smoke import TOL_GRAD_PLAIN, TOL_LSE, TOL_PLAIN
 from ray_tpu_torch.ops import _kernels
 from ray_tpu_torch.ops import flash_attention as P
 
@@ -111,6 +112,28 @@ def k1_tensor_core_emulation(q, k, v, causal, scale, bk=64):
     return (acc / l.clamp_min(1e-30)).to(BF16)
 
 
+def k2_tensor_core_emulation(q, k, v, out, lse, do, causal, scale, bk=64):
+    """bf16 K2 as the tensor-core body computes it: Delta = rowsum(dO * O)
+    in f32 from the bf16 values; per 64-key tile, S = Q K^T and dP = dO V^T
+    in f32, P = exp(S scale - lse) and dS = P (dP - Delta) in f32, dS
+    rounded to bf16 before dQ += dS K (f32 accumulation); dQ times scale
+    once, rounded once to bf16. Returns (dQ, Delta)."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    T = q.shape[2]
+    delta = (dof * out.float()).sum(-1)
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, k.shape[2], bk):
+        ks = slice(k0, k0 + bk)
+        p = torch.exp(qf @ kf[:, :, ks].transpose(-1, -2) * scale
+                      - lse[..., None])
+        if causal:
+            p = torch.where(_causal_keep(T, 0, T, k0, p.shape[-1]), p, 0.0)
+        dp = dof @ vf[:, :, ks].transpose(-1, -2)
+        ds = p * (dp - delta[..., None])
+        dq += ds.to(BF16).float() @ kf[:, :, ks]
+    return (dq * scale).to(BF16), delta
+
+
 def k3_tensor_core_emulation(q, k, v, do, lse, delta, causal, scale,
                              bq=64):
     """bf16 K3 as the tensor-core body computes it: per q tile, S^T = K Q^T
@@ -167,6 +190,25 @@ def test_k3_bf16_rounding_of_p_and_ds_fits_the_tolerance(D, causal):
     for g, w in zip(got, want):
         _assert_close(g, w, TOL_GRAD_PLAIN[BF16])
         assert not torch.equal(g.float(), w)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [32, 64])
+def test_k2_bf16_rounding_of_ds_fits_the_tolerance(D, causal):
+    q, k, v, do = _bf16_inputs(2, 4, 128, D, seed=20 + D + causal)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    scale = 1.0 / math.sqrt(D)
+    out, lse = P.flash_attention_reference(qf, kf, vf, causal, scale)
+    out = out.to(BF16)  # the kernel reads O as K1 wrote it, in bf16
+    got, delta = k2_tensor_core_emulation(q, k, v, out, lse, do, causal,
+                                          scale)
+    want, want_delta = P._bwd_dq_reference(qf, kf, vf, out, lse, dof,
+                                           causal, scale, 128, 128)
+    _assert_close(got, want, TOL_GRAD_PLAIN[BF16])
+    _assert_close(delta, want_delta, TOL_LSE)
+    # the rounding of dS is modelled: it moves some dQ off the plain
+    # version's own bf16 rounding
+    assert not torch.equal(got, want.to(BF16))
 
 
 # ------------------------------------------ the library's name and headers
