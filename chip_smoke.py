@@ -27,13 +27,28 @@ Phases, each reported on its own line:
 6. GPT-2-125M training at full width (bench.py's defaults: B=24, T=1024,
    remat "dots", flash attention) through compile_gpt2_train: exact kernel
    launches per step, a falling loss on a repeated batch, the first steps
-   equal to the dense path's, step time, tokens/s and MFU.
-Phases 4-5 (inference) and phase 6 (training) are the main paths: every
-kernel's launch count is set to 0 before each and read right after. The
-line before the last lists the kernels as JSON, with the training path's
-counts; the last line is {"ok": true, "device": {...}}. Any failure raises
-and the script exits non-zero without that line. Needs one CUDA card;
-imports nothing of JAX.
+   equal to the dense path's, step time, tokens/s and MFU;
+7. Llama inference at full width and depth, llama3-8b (seeded random
+   weights drawn on the card): the B=1 T=4096 forward through K1 at Dh=128
+   (32 launches) against the dense path, then KV-cache decode at B=4: a
+   32-token prompt fed token by token and 32 greedy tokens, the decode
+   logits held against the flash forward's at every position;
+8. Llama training at full width and depth, tinyllama-1.1b (B=8, T=2048,
+   remat, flash, grouped-query K/V) through compile_model_train: exact
+   launches per step, a falling loss, the first steps equal to the dense
+   path's, step time, tokens/s, MFU and a profiled step;
+9. MoE at mixtral-8x7b's widths cut to 2 layers: forward with the aux
+   metrics, flash against dense on the first step's loss, and 5 training
+   steps through compile_model_train with exact launches per step.
+Phase 2 also holds the kernels at the Llama paths' shapes (tinyllama's
+training, llama3-8b's forward, K/V expanded from the KV heads) and times
+that expansion. Phases 4-5 (GPT-2 inference), 6 (GPT-2 training), 7, 8 and
+9 are the main paths: every kernel's launch count is set to 0 before each
+and read right after. The line before the last lists the kernels as JSON,
+with the GPT-2 training path's counts under "launches" and every path's
+under "launches_by_path"; the last line is {"ok": true, "device": {...}}.
+Any failure raises and the script exits non-zero without that line. Needs
+one CUDA card; imports nothing of JAX.
 
 TF32 is off for matmuls and cuDNN (set below), so float32 products are full
 float32 and the f32 comparisons are meaningful.
@@ -57,7 +72,7 @@ import time
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.models import gpt2
+from ray_tpu_torch.models import gpt2, llama, moe
 from ray_tpu_torch.ops import _kernels
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.serve.llm import LLMEngine, LLMServer
@@ -98,6 +113,10 @@ TOL_GRAD_PLAIN = {torch.float32: dict(atol=5e-4, rtol=1e-3),
 # (bf16-valued) inputs: the kernels round dQ, dK, dV once (one bf16 step,
 # 2^-8 relative) and take Delta from the bf16-rounded O, a second rounding
 # of the same size, so twice the bf16 plain tolerance.
+# The bound is tight in short causal rows: in row 1 the two keys' dS cancel
+# in exact arithmetic, and rounding dS to bf16 (in the kernels as in SDPA)
+# can leave a small dQ entry past it; tests/grad_bound_diagnosis.py breaks
+# such a case down (ROADMAP queue 3).
 TOL_GRAD_MHA = {torch.float32: dict(atol=5e-4, rtol=1e-3),
                 torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 # GPT-2-125M logits, bf16 activations through 12 layers, flash vs dense
@@ -111,6 +130,17 @@ TOL_LOGITS = 0.1
 # bf16 rounding (2^-8 relative), taken in f32, so 2 % relative.
 TOL_TRAIN_LOSS = 1e-2
 TOL_TRAIN_GRAD_NORM = 2e-2
+# Llama logits through 32 layers in bf16, flash vs dense forward and KV-cache
+# decode vs forward. The paths round O and the bf16 residual stream at other
+# places; each layer's roundings are independent of the last's, so the gap
+# grows as the square root of the depth. At llama3-8b's widths (logits std
+# ~1.28, the largest ~7, where one bf16 step is 0.031) a CPU run of 1, 2 and
+# 4 layers put max |d| near 2, 2.5 and 4 bf16 steps, which extrapolates to
+# ~11 steps (0.33) at 32 layers and a mean |d| of ~0.05. The bounds: max |d|
+# 0.5, mean |d| 0.1 (a head mapped to the wrong KV head moves the mean by
+# about the logits' std).
+TOL_LLAMA_MAX = 0.5
+TOL_LLAMA_MEAN = 0.1
 
 # The main paths' sizes: GPT-2-125M at its published widths and window
 # (1024), the forward at B=4, training at bench.py's per-device batch of 24.
@@ -129,27 +159,55 @@ PROFILE_STEP = 5
 # the fwd+bwd sweep: (B, H, Dh) and the sequence lengths
 SWEEP_BHD = (4, 12, 64)
 SWEEP_LENGTHS = (1024, 2048, 4096)
+# the Llama and MoE paths (phases 7-9), at their presets' published widths
+LLAMA_INFER = "llama3-8b"
+LLAMA_FORWARD_T = 4096
+DECODE_B = 4
+DECODE_CACHE = 1024
+DECODE_PROMPT = 32
+DECODE_NEW = 32
+LLAMA_TRAIN = "tinyllama-1.1b"
+LLAMA_TRAIN_B = 8
+LLAMA_TRAIN_T = 2048
+LLAMA_TRAIN_STEPS = 10
+LLAMA_DENSE_STEPS = 3
+LLAMA_PROFILE_STEP = 5
+# mixtral-8x7b's 32 layers are 47 B params; two with f32 Adam are ~51 GB
+MOE_PRESET = "mixtral-8x7b"
+MOE_LAYERS = 2
+MOE_B = 2
+MOE_T = 2048
+MOE_STEPS = 5
 
-# (name, B, H, T, Dh, dtype, causal, model_layout). model_layout: q, k, v
-# are views split from one [B, T, 3*H*Dh] tensor and dO is the transposed
-# view of a [B, T, H*Dh] gradient, as gpt2._attention and autograd hand them
-# to the kernels; otherwise all four are contiguous. The first case is the
-# training main path's own shape and layout (its K1, K2, K3 records fill the
-# kernels line); the second is the forward's.
+# (name, B, H, T, Dh, dtype, causal, layout). layout "qkv": q, k, v are
+# views split from one [B, T, 3*H*Dh] tensor and dO is the transposed view
+# of a [B, T, H*Dh] gradient, as gpt2._attention and autograd hand them to
+# the kernels; "gqaG": q and dO are transposed views of [B, T, H, Dh]
+# tensors and k, v are expanded from H/G KV heads (llama.expand_kv), as
+# llama.attention hands them over; "contiguous": all four contiguous. The
+# first case is the GPT-2 training main path's own shape and layout (its
+# K1, K2, K3 records fill the kernels line); the second is the GPT-2
+# forward's; the last two are the Llama paths' (LLAMA_SHAPES), after the
+# earlier cases so that those draw the inputs they always drew.
 KERNEL_CASES = [
-    ("train-path", 24, 12, 1024, 64, torch.bfloat16, True, True),
-    ("forward-path", 4, 12, 1024, 64, torch.bfloat16, True, True),
-    ("b4-t1024", 4, 12, 1024, 64, torch.bfloat16, True, False),
-    ("b8-t1024", 8, 12, 1024, 64, torch.bfloat16, True, False),
-    ("b2-t2048", 2, 12, 2048, 64, torch.bfloat16, True, False),
-    ("non-causal", 4, 12, 1024, 64, torch.bfloat16, False, False),
-    ("f32", 2, 12, 1024, 64, torch.float32, True, False),
-    ("dh32", 2, 4, 256, 32, torch.bfloat16, True, False),
-    ("dh128-f32", 2, 4, 256, 128, torch.float32, False, False),
-    ("ragged-t100", 4, 12, 100, 64, torch.bfloat16, True, False),
-    ("dh128", 2, 12, 1024, 128, torch.bfloat16, True, False),
-    ("dh32-non-causal", 2, 4, 256, 32, torch.bfloat16, False, False),
+    ("train-path", 24, 12, 1024, 64, torch.bfloat16, True, "qkv"),
+    ("forward-path", 4, 12, 1024, 64, torch.bfloat16, True, "qkv"),
+    ("b4-t1024", 4, 12, 1024, 64, torch.bfloat16, True, "contiguous"),
+    ("b8-t1024", 8, 12, 1024, 64, torch.bfloat16, True, "contiguous"),
+    ("b2-t2048", 2, 12, 2048, 64, torch.bfloat16, True, "contiguous"),
+    ("non-causal", 4, 12, 1024, 64, torch.bfloat16, False, "contiguous"),
+    ("f32", 2, 12, 1024, 64, torch.float32, True, "contiguous"),
+    ("dh32", 2, 4, 256, 32, torch.bfloat16, True, "contiguous"),
+    ("dh128-f32", 2, 4, 256, 128, torch.float32, False, "contiguous"),
+    ("ragged-t100", 4, 12, 100, 64, torch.bfloat16, True, "contiguous"),
+    ("dh128", 2, 12, 1024, 128, torch.bfloat16, True, "contiguous"),
+    ("dh32-non-causal", 2, 4, 256, 32, torch.bfloat16, False, "contiguous"),
+    ("tinyllama-train", 8, 32, 2048, 64, torch.bfloat16, True, "gqa8"),
+    ("llama3-8b-forward", 1, 32, 4096, 128, torch.bfloat16, True, "gqa4"),
 ]
+# the Llama paths' kernel cases, reported in the kernels line beside the
+# GPT-2 training path's
+LLAMA_SHAPES = ("tinyllama-train", "llama3-8b-forward")
 
 
 def log(msg: str) -> None:
@@ -235,10 +293,11 @@ def gpu_line() -> str:
 
 
 # --------------------------------------------------------------- phases
-# the training main path's K1, K2 and K3 instantiations: they must not spill
-MAIN_PATH_MMA = ("flash_fwd_mma_kernel<bf16, Dh=64>",
-                 "flash_bwd_dq_mma_kernel<bf16, Dh=64>",
-                 "flash_bwd_dkv_mma_kernel<bf16, Dh=64>")
+# the main paths' K1, K2 and K3 instantiations: they must not spill (Dh=64:
+# GPT-2 and tinyllama; Dh=128: llama3-8b's forward and the MoE's training)
+MAIN_PATH_MMA = tuple(f"flash_{k}_mma_kernel<bf16, Dh={dh}>"
+                      for dh in (64, 128)
+                      for k in ("fwd", "bwd_dq", "bwd_dkv"))
 # a kernel instantiation's mangled name: the FMA kernels are templates on
 # the type and Dh, the tensor-core (mma) ones on Dh alone (bf16)
 _KERNEL_NAME = re.compile(
@@ -303,8 +362,8 @@ def _tensor_core_counts(lib: str) -> dict:
 def phase_build() -> None:
     """Build every kernel; print registers, spills and tensor-core
     instructions per instantiation. Fails if a bf16 (tensor-core)
-    instantiation of K1, K2 or K3 has no tensor-core instruction, or if the
-    main path's (bf16, Dh=64) K1, K2 or K3 spills."""
+    instantiation of K1, K2 or K3 has no tensor-core instruction, or if a
+    main path's (bf16, Dh=64 or 128) K1, K2 or K3 spills."""
     t0 = time.perf_counter()
     info = _kernels.build_all()
     log(f"[build] {len(info)} kernel(s) built in "
@@ -322,27 +381,39 @@ def phase_build() -> None:
                 raise AssertionError(f"{inst} has no tensor-core instruction")
 
 
-def _case_inputs(gen, B, H, T, Dh, dtype, model_layout) -> list:
+def _case_inputs(gen, B, H, T, Dh, dtype, layout) -> list:
     """q, k, v, dO [B, H, T, Dh] of a kernel case (see KERNEL_CASES)."""
-    if not model_layout:
-        return [torch.randn((B, H, T, Dh), generator=gen, device=DEVICE)
-                .to(dtype) for _ in range(4)]
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+    if layout == "contiguous":
+        return [randn(B, H, T, Dh) for _ in range(4)]
+    if layout.startswith("gqa"):
+        G = int(layout[3:])
+        q, k, v, do = (randn(B, T, heads, Dh) for heads in (H, H // G,
+                                                            H // G, H))
+        k, v = llama.expand_kv(k, G), llama.expand_kv(v, G)
+        return [t.transpose(1, 2) for t in (q, k, v, do)]
     D = H * Dh
-    qkv = torch.randn((B, T, 3 * D), generator=gen, device=DEVICE).to(dtype)
-    do = torch.randn((B, T, D), generator=gen, device=DEVICE).to(dtype)
     return [t.reshape(B, T, H, Dh).transpose(1, 2)
-            for t in (*qkv.split(D, dim=-1), do)]
+            for t in (*randn(B, T, 3 * D).split(D, dim=-1), randn(B, T, D))]
 
 
-def _case_label(B, H, T, Dh, dtype, causal, model_layout) -> str:
+def _case_label(B, H, T, Dh, dtype, causal, layout) -> str:
+    if layout.startswith("gqa"):
+        G = int(layout[3:])
+        layout = f"q views, K/V expanded {G}x from {H // G} KV heads"
+    elif layout == "qkv":
+        layout = "QKV views"
     return (f"B={B} H={H} T={T} Dh={Dh} {str(dtype)[6:]} causal={causal} "
-            f"{'model views' if model_layout else 'contiguous'}")
+            f"{layout}")
 
 
 def phase_kernels(gen: torch.Generator) -> dict:
-    """K1 against flash_attention_reference and mha_reference; returns the
-    first case's record (the training path's shape)."""
-    main = None
+    """K1 against flash_attention_reference and mha_reference, and the cost
+    of the GQA expansion at the Llama shapes; returns {case name: K1's
+    record}."""
+    recs = {}
     for name, *case in KERNEL_CASES:
         B, H, T, Dh, dtype, causal, _ = case
         q, k, v, _ = _case_inputs(gen, *case[:4], dtype, case[6])
@@ -372,9 +443,30 @@ def phase_kernels(gen: torch.Generator) -> dict:
             f"{100 * bound_ms / ms:.2f}% of bound")
         if not (ok_o and ok_l and ok_m):
             raise AssertionError(f"K1 {name} disagrees with its plain version")
-        if main is None:
-            main = rec
-    return main
+        recs[name] = rec
+        if case[6].startswith("gqa"):
+            _gqa_copy(name, B, H, T, Dh, dtype, int(case[6][3:]), ms)
+    return recs
+
+
+def _gqa_copy(name, B, H, T, Dh, dtype, G, k1_ms) -> None:
+    """Time the expansion of K and V from H/G KV heads to H (llama.expand_kv:
+    a copy) and its backward (autograd's sum over each group), beside K1 at
+    the same shape. Bound: the bytes read and written, over HBM bandwidth."""
+    KV = H // G
+    k, v = (torch.randn((B, T, KV, Dh), device=DEVICE).to(dtype)
+            .requires_grad_() for _ in range(2))
+    fwd_ms = time_ms(lambda: (llama.expand_kv(k, G), llama.expand_kv(v, G)))
+    big = [llama.expand_kv(t, G) for t in (k, v)]
+    grads = [torch.randn_like(t) for t in big]
+    bwd_ms = time_ms(lambda: torch.autograd.grad(big, (k, v), grads,
+                                                 retain_graph=True))
+    esz = big[0].element_size()
+    bound = 2 * esz * B * T * Dh * (KV + H) / HBM_BYTES_PER_S * 1e3
+    log(f"[gqa copy {name}] K and V [B={B}, T={T}, {KV}, {Dh}] -> [{B}, {T}, "
+        f"{H}, {Dh}] {str(dtype)[6:]}: expand {fwd_ms:.4f} ms, backward "
+        f"(sum over each group of {G}) {bwd_ms:.4f} ms, bound of either "
+        f"{bound:.4f} ms (bytes); K1 at this shape {k1_ms:.4f} ms")
 
 
 def _grads(fn, inputs, do):
@@ -382,11 +474,11 @@ def _grads(fn, inputs, do):
     return torch.autograd.grad(fn(*leaves), leaves, do)
 
 
-def phase_backward(gen: torch.Generator) -> tuple:
+def phase_backward(gen: torch.Generator) -> dict:
     """K2 and K3 against their plain versions, and K1+K2+K3 gradients
-    against autograd through mha_reference; returns the first case's (the
-    training path's shape) records of K2 and K3."""
-    recs = None
+    against autograd through mha_reference; returns {case name: (K2's
+    record, K3's)}."""
+    recs = {}
     for name, *case in KERNEL_CASES:
         B, H, T, Dh, dtype, causal, _ = case
         q, k, v, do = _case_inputs(gen, *case[:4], dtype, case[6])
@@ -425,9 +517,14 @@ def phase_backward(gen: torch.Generator) -> tuple:
             q, k, v, out, lse, do, causal, scale, bq, bk), iters=3)
         k3_plain = time_ms(lambda: fa._bwd_dkv_reference(
             q, k, v, do, lse, delta, causal, scale, bq, bk), iters=3)
-        # the library yardstick for K2+K3 together: SDPA's backward alone
+        # the library yardstick for K2+K3 together: SDPA's backward alone;
+        # its gradients' distance from mha_reference's is printed beside
+        # the kernels' (a yardstick for TOL_GRAD_MHA, not a gate)
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
         o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        lib = torch.autograd.grad(o, (qs, ks, vs), do, retain_graph=True)
+        lib_err = [close(g, w, 0, 0)[0] for g, w in zip(lib, want)]
+        del lib
         lib_ms = time_ms(lambda: torch.autograd.grad(
             o, (qs, ks, vs), do, retain_graph=True))
         del o
@@ -437,7 +534,9 @@ def phase_backward(gen: torch.Generator) -> tuple:
             f"|ddV| {e_dv:.3g} (tol {tol}), |dDelta| {e_dl:.3g} (tol "
             f"{TOL_LSE}); K1+K2+K3 vs autograd(mha_reference) |d| "
             f"{', '.join(f'{e:.3g}' for e, _ in mha)} (tol "
-            f"{TOL_GRAD_MHA[dtype]}); K2 {k2_ms:.4f} ms (plain {k2_plain:.4f}, "
+            f"{TOL_GRAD_MHA[dtype]}), sdpa's "
+            f"{', '.join(f'{e:.3g}' for e in lib_err)}; K2 {k2_ms:.4f} ms "
+            f"(plain {k2_plain:.4f}, "
             f"bound {b2[0]:.4f} {b2[1]}, {100 * b2[0] / k2_ms:.2f}%), K3 "
             f"{k3_ms:.4f} ms (plain {k3_plain:.4f}, bound {b3[0]:.4f} "
             f"{b3[1]}, {100 * b3[0] / k3_ms:.2f}%), sdpa backward "
@@ -450,13 +549,12 @@ def phase_backward(gen: torch.Generator) -> tuple:
             if not same:
                 raise AssertionError(f"{kname} {name}: two runs on the same "
                                      f"inputs differ")
-        if recs is None:
-            recs = (dict(max_abs_err=max(e_dq, e_dl), ms=k2_ms,
-                         plain_ms=k2_plain, bound_ms=b2[0], bound_by=b2[1],
-                         library_ms=lib_ms),
-                    dict(max_abs_err=max(e_dk, e_dv), ms=k3_ms,
-                         plain_ms=k3_plain, bound_ms=b3[0], bound_by=b3[1],
-                         library_ms=lib_ms))
+        recs[name] = (dict(max_abs_err=max(e_dq, e_dl), ms=k2_ms,
+                           plain_ms=k2_plain, bound_ms=b2[0], bound_by=b2[1],
+                           library_ms=lib_ms),
+                      dict(max_abs_err=max(e_dk, e_dv), ms=k3_ms,
+                           plain_ms=k3_plain, bound_ms=b3[0], bound_by=b3[1],
+                           library_ms=lib_ms))
     return recs
 
 
@@ -465,7 +563,8 @@ def phase_sweep(gen: torch.Generator) -> None:
     against SDPA (a yardstick the port never calls) and the dense path."""
     B, H, Dh = SWEEP_BHD
     for T in SWEEP_LENGTHS:
-        q, k, v, do = _case_inputs(gen, B, H, T, Dh, torch.bfloat16, False)
+        q, k, v, do = _case_inputs(gen, B, H, T, Dh, torch.bfloat16,
+                                   "contiguous")
         fns = {
             "flash": lambda *t: fa.flash_attention(*t, True),
             "sdpa": lambda *t: F.scaled_dot_product_attention(
@@ -627,8 +726,9 @@ def _kernel_group(name: str) -> str:
         if key in name:
             return group
     low = name.lower()
-    # cuBLAS names its kernels gemm/xmma/cutlass, or nvjet (CUDA 12.8+)
-    if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
+    # cuBLAS names its kernels gemm/gemv/xmma/cutlass, or nvjet (CUDA 12.8+)
+    if any(w in low for w in ("gemm", "gemv", "xmma", "cutlass", "cublas",
+                              "nvjet")):
         return "matmul"
     return "other"
 
@@ -652,13 +752,18 @@ def _profiled(fn) -> tuple:
     return out, groups, sorted(kernels, reverse=True)[:6]
 
 
-def _train_run(cfg, opt, batch, steps, profile_at) -> tuple:
-    """`steps` steps from seeded params: ([(loss, grad_norm)], [step s],
-    and the profile of step `profile_at`, as `_profiled` gives it)."""
-    train = spmd.compile_gpt2_train(cfg, optimizer=opt, device=DEVICE)
-    state = train.init_fn(torch.Generator().manual_seed(0))
+def _train_run(cfg, opt, batch, steps, profile_at, model=gpt2,
+               init_device="cpu", on_step=None) -> tuple:
+    """`steps` steps of `model` through compile_model_train from params
+    drawn by a generator on `init_device` seeded 0: ([(loss, grad_norm)],
+    [step s], and the profile of step `profile_at`, as `_profiled` gives
+    it). on_step(i, state), where given, runs before step i."""
+    train = spmd.compile_model_train(model, cfg, optimizer=opt, device=DEVICE)
+    state = train.init_fn(torch.Generator(device=init_device).manual_seed(0))
     hist, secs, profile = [], [], None
     for i in range(steps):
+        if on_step is not None:
+            on_step(i, state)
         t0 = time.perf_counter()
         if i == profile_at:
             (state, m), *profile = _profiled(
@@ -677,22 +782,25 @@ def _step_ms(secs, profile_at) -> float:
         s for i, s in enumerate(secs) if i >= 2 and i != profile_at)
 
 
-def _log_profile(label, profile, profile_at, secs) -> None:
+def _profile_text(profile, step_ms) -> str:
     """A profiled step's kernel time by group, set against the median
     unprofiled step: the profiled step's own wall time is no measure of
     idleness."""
     groups, top = profile
     busy = sum(groups.values())
-    step_ms = _step_ms(secs, profile_at)
-    log(f"[train {PRESET}] {label} step {profile_at + 1} under "
+    if not busy:
+        return "the profiler saw no device time: not measured"
+    return (f"kernels {busy:.2f} ms, {100 * busy / step_ms:.1f}% of the "
+            f"median step ({step_ms:.2f} ms): "
+            + ", ".join(f"{g} {ms:.2f}" for g, ms in groups.most_common())
+            + "; costliest: " + "; ".join(f"{ms:.2f} {name[:60]}"
+                                          for ms, name in top))
+
+
+def _log_profile(label, profile, profile_at, secs, preset=None) -> None:
+    log(f"[train {preset or PRESET}] {label} step {profile_at + 1} under "
         f"torch.profiler (wall {secs[profile_at] * 1e3:.2f} ms with the "
-        f"profiler): "
-        + (f"kernels {busy:.2f} ms, {100 * busy / step_ms:.1f}% of the "
-           f"median step ({step_ms:.2f} ms): "
-           + ", ".join(f"{g} {ms:.2f}" for g, ms in groups.most_common())
-           + "; costliest: " + "; ".join(f"{ms:.2f} {name[:60]}"
-                                         for ms, name in top)
-           if busy else "the profiler saw no device time: not measured"))
+        f"profiler): " + _profile_text(profile, _step_ms(secs, profile_at)))
 
 
 def phase_train(card: str) -> tuple:
@@ -725,12 +833,8 @@ def phase_train(card: str) -> tuple:
                              "kernel")
 
     fpt = gpt2.flops_per_token(cfg, T)
-    rate = {}
-    for name, s, at in (("flash", secs, PROFILE_STEP),
-                        ("dense", dsecs, dense_profile_at)):
-        step_ms = _step_ms(s, at)
-        rate[name] = (step_ms, B * T / step_ms * 1e3, 100 * fpt * B * T
-                      / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16])
+    rate = {"flash": _train_rates(secs, PROFILE_STEP, fpt, B * T),
+            "dense": _train_rates(dsecs, dense_profile_at, fpt, B * T)}
     d_loss = max(abs(a[0] - b[0]) for a, b in zip(hist[:3], dhist[:3]))
     d_norm = max(abs(a[1] / b[1] - 1) for a, b in zip(hist[:3], dhist[:3]))
     log(f"[train {preset}] B={B} T={T} bf16 remat=dots "
@@ -762,6 +866,246 @@ def phase_train(card: str) -> tuple:
     return launches
 
 
+def _logit_gap(a, b) -> tuple:
+    """(max |a - b|, mean |a - b|) in f32."""
+    d = (a.float() - b.float()).abs()
+    return float(d.max()), float(d.mean())
+
+
+def _check_gap(what, gap) -> None:
+    if not (gap[0] <= TOL_LLAMA_MAX and gap[1] <= TOL_LLAMA_MEAN):
+        raise AssertionError(f"{what}: max/mean |d| {gap[0]:.4g}/{gap[1]:.4g}"
+                             f" past {TOL_LLAMA_MAX}/{TOL_LLAMA_MEAN}")
+
+
+def phase_llama_infer(card: str) -> None:
+    """llama3-8b at full width and depth: the forward through K1 (Dh=128)
+    against the dense path, then KV-cache decode against the forward."""
+    cfg = llama.LlamaConfig.preset(LLAMA_INFER, attn_impl="flash")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    t0 = time.perf_counter()
+    params = llama.init_params(gen, cfg, DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    T = LLAMA_FORWARD_T
+    tokens = torch.randint(0, cfg.vocab_size, (1, T), generator=gen,
+                           device=DEVICE)
+    before = fa.flash_attention.launches
+    logits = llama.forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    per_forward = fa.flash_attention.launches - before
+    if per_forward != cfg.n_layer:
+        raise AssertionError(f"{per_forward} K1 launches in one forward, "
+                             f"want {cfg.n_layer}")
+    dense_cfg = dataclasses.replace(cfg, attn_impl="dense")
+    gap = _logit_gap(logits, llama.forward(params, tokens, dense_cfg))
+    finite = bool(torch.isfinite(logits.float()).all())
+    del logits
+    ms = time_ms(lambda: llama.forward(params, tokens, cfg), iters=3,
+                 warmup=1)
+    dense_ms = time_ms(lambda: llama.forward(params, tokens, dense_cfg),
+                       iters=3, warmup=1)
+    log(f"[llama {LLAMA_INFER}] {cfg.n_layer} layers, {cfg.n_head} heads on "
+        f"{cfg.n_kv_head} KV heads, Dh={cfg.head_dim}, d_model "
+        f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{llama.num_params(cfg) / 1e9:.3f} B params (f32, drawn on the card "
+        f"in {init_s:.2f} s); forward B=1 T={T} bf16: {per_forward} K1 "
+        f"launches; flash vs dense logits max |d| {gap[0]:.4g} mean "
+        f"{gap[1]:.4g} (tol {TOL_LLAMA_MAX} / {TOL_LLAMA_MEAN}); forward "
+        f"{ms:.3f} ms flash, {dense_ms:.3f} ms dense on {card}")
+    if not finite:
+        raise AssertionError("non-finite llama logits")
+    _check_gap("llama flash vs dense forward", gap)
+
+    # decode: the prompt token by token, then greedy tokens; the decode
+    # logits at every position against one flash forward of the whole
+    # sequence (K1 with T = prompt + new tokens)
+    B, P, N = DECODE_B, DECODE_PROMPT, DECODE_NEW
+    seq = torch.randint(0, cfg.vocab_size, (B, P + N), generator=gen,
+                        device=DEVICE)
+    cache = llama.init_cache(cfg, B, DECODE_CACHE, device=DEVICE)
+    active = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    dec, secs, profile_at = [], [], P + N // 2
+    for i in range(P + N):
+        def step():
+            return llama.decode_step(params, cache, seq[:, i],
+                                     torch.full((B,), i, device=DEVICE),
+                                     active, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == profile_at:
+            (out, cache), *profile = _profiled(step)
+        else:
+            out, cache = step()
+        if P <= i + 1 < P + N:
+            seq[:, i + 1] = out.argmax(-1)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        dec.append(out)
+    dgap = _logit_gap(torch.stack(dec, 1), llama.forward(params, seq, cfg))
+    step_ms = 1e3 * statistics.median(
+        s for i, s in enumerate(secs) if i >= P and i != profile_at)
+    prompt_ms = 1e3 * statistics.median(secs[1:P])
+    log(f"[llama {LLAMA_INFER}] decode B={B} cache {DECODE_CACHE}: "
+        f"{P}-token prompt fed token by token, {N} greedy tokens; decode "
+        f"vs flash forward logits over all {P + N} positions max |d| "
+        f"{dgap[0]:.4g} mean {dgap[1]:.4g} (tol {TOL_LLAMA_MAX} / "
+        f"{TOL_LLAMA_MEAN}); step {step_ms:.2f} ms (median of the greedy "
+        f"steps, the profiled one left out; prompt steps {prompt_ms:.2f}), "
+        f"{B / step_ms * 1e3:.1f} tokens/s on {card}")
+    log(f"[llama {LLAMA_INFER}] decode step {profile_at + 1} under "
+        f"torch.profiler: " + _profile_text(profile, step_ms))
+    _check_gap("llama decode vs forward", dgap)
+
+
+def _train_rates(secs, profile_at, flops_per_token, tokens) -> tuple:
+    """(step ms, tokens/s, MFU %) of a run, as phase 6 computes them."""
+    step_ms = _step_ms(secs, profile_at)
+    return (step_ms, tokens / step_ms * 1e3, 100 * flops_per_token * tokens
+            / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16])
+
+
+def phase_llama_train(card: str) -> tuple:
+    """tinyllama-1.1b training through compile_model_train(llama, ...) with
+    remat and flash attention, then the dense path from the same params;
+    launch counts start at 0 and must be exactly the per-step counts times
+    the steps. Returns those counts."""
+    B, T, steps = LLAMA_TRAIN_B, LLAMA_TRAIN_T, LLAMA_TRAIN_STEPS
+    cfg = llama.LlamaConfig.preset(LLAMA_TRAIN, attn_impl="flash",
+                                   remat=True)
+    opt = spmd.default_optimizer(lr=6e-4, warmup=2, total_steps=1000)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens.to(DEVICE)}
+    per_step = (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer)
+
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    hist, secs, profile = _train_run(cfg, opt, batch, steps,
+                                     LLAMA_PROFILE_STEP, llama, DEVICE)
+    launches = _flash_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    dense_cfg = dataclasses.replace(cfg, attn_impl="dense")
+    dhist, dsecs, _ = _train_run(dense_cfg, opt, batch, LLAMA_DENSE_STEPS,
+                                 None, llama, DEVICE)
+    if _flash_counts() != launches:
+        raise AssertionError("the dense training path launched a flash "
+                             "kernel")
+    # gpt2.flops_per_token's formula on this model's own parameter count
+    fpt = 6 * llama.num_params(cfg) + 12 * cfg.n_layer * cfg.d_model * T
+    ms, tps, mfu = _train_rates(secs, LLAMA_PROFILE_STEP, fpt, B * T)
+    n = min(3, LLAMA_DENSE_STEPS)
+    d_loss = max(abs(a[0] - b[0]) for a, b in zip(hist[:n], dhist[:n]))
+    d_norm = max(abs(a[1] / b[1] - 1) for a, b in zip(hist[:n], dhist[:n]))
+    log(f"[train {LLAMA_TRAIN}] B={B} T={T} bf16 remat, {cfg.n_layer} "
+        f"layers, {cfg.n_head} heads on {cfg.n_kv_head} KV heads, "
+        f"{llama.num_params(cfg) / 1e9:.4f} B params: flash launches "
+        f"K1/K2/K3 {launches} over {steps} steps (want {per_step} per step);"
+        f" loss {' '.join(f'{l:.4f}' for l, _ in hist)}; grad_norm "
+        f"{' '.join(f'{g:.4f}' for _, g in hist)}; dense loss "
+        f"{' '.join(f'{l:.4f}' for l, _ in dhist)}, grad_norm "
+        f"{' '.join(f'{g:.4f}' for _, g in dhist)}; first {n} steps flash vs "
+        f"dense max |dloss| {d_loss:.3g} (tol {TOL_TRAIN_LOSS}), max "
+        f"|dgrad_norm|/grad_norm {d_norm:.3g} (tol {TOL_TRAIN_GRAD_NORM}); "
+        f"peak memory {peak_gb:.2f} GB (flash)")
+    _log_profile("flash", profile, LLAMA_PROFILE_STEP, secs, LLAMA_TRAIN)
+    log(f"[train {LLAMA_TRAIN}] flash: step {ms:.2f} ms (median of steps 3+,"
+        f" the profiled one left out), {tps:.0f} tokens/s, MFU {mfu:.2f}% of "
+        f"989 TFLOP/s bf16 ({fpt:.4g} FLOP/token = 6 * params + 12 * n_layer"
+        f" * d_model * T) on {card}; dense: step {_step_ms(dsecs, None):.2f}"
+        f" ms (median of steps 3+)")
+    if launches != tuple(steps * k for k in per_step):
+        raise AssertionError(f"K1/K2/K3 launches {launches} != {steps} x "
+                             f"{per_step}")
+    if not all(math.isfinite(x) for h in hist + dhist for x in h):
+        raise AssertionError("non-finite loss or grad norm")
+    if not hist[-1][0] < hist[0][0] - 0.05:
+        raise AssertionError(f"loss did not fall: {hist[0][0]} -> "
+                             f"{hist[-1][0]}")
+    if d_loss > TOL_TRAIN_LOSS or d_norm > TOL_TRAIN_GRAD_NORM:
+        raise AssertionError("flash and dense llama training disagree")
+    return launches
+
+
+def phase_moe(card: str) -> tuple:
+    """mixtral-8x7b's widths, MOE_LAYERS layers: the forward's aux metrics,
+    flash vs dense on the first step's loss, then MOE_STEPS training steps
+    through compile_model_train(moe, ...). Launch counts start at 0 before
+    the path; the forward must launch n_layer K1 and the steps exactly the
+    per-step counts times the steps. Returns the path's counts."""
+    B, T, steps = MOE_B, MOE_T, MOE_STEPS
+    cfg = moe.MoEConfig.preset(MOE_PRESET, n_layer=MOE_LAYERS,
+                               attn_impl="flash")
+    dense_cfg = dataclasses.replace(cfg, attn_impl="dense")
+    opt = spmd.default_optimizer(lr=6e-4, warmup=2, total_steps=1000)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1),
+                           generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": tokens.to(DEVICE)}
+    per_step = (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer)
+    first = {}
+
+    def before_step(i, state):
+        # step 0's params: the forward and the dense loss, under no_grad
+        if i:
+            return
+        with torch.no_grad():
+            logits, aux = moe.forward(state.params, batch["tokens"][:, :-1],
+                                      cfg, return_aux=True)
+            first["finite"] = bool(torch.isfinite(logits.float()).all())
+            del logits
+            first["aux"] = {k: float(v) for k, v in aux.items()}
+            first["dense"] = float(moe.loss_fn(state.params, batch,
+                                               dense_cfg))
+        first["forward_launches"] = _flash_counts()
+
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    profile_at = steps - 1
+    hist, secs, profile = _train_run(cfg, opt, batch, steps, profile_at, moe,
+                                     DEVICE, before_step)
+    path = _flash_counts()
+    launches = tuple(a - b for a, b in zip(path, first["forward_launches"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    d_loss = abs(hist[0][0] - first["dense"])
+    step_ms = _step_ms(secs, profile_at)
+    full = moe.MoEConfig.preset(MOE_PRESET)
+    log(f"[moe {MOE_PRESET}] {cfg.n_layer} of {full.n_layer} layers (cut: "
+        f"{moe.num_params(full) / 1e9:.1f} B params with f32 Adam do not fit "
+        f"one card), {cfg.n_experts} experts top-"
+        f"{cfg.experts_per_token}, capacity {moe.expert_capacity(cfg, T)} "
+        f"per expert and row, {cfg.n_head} heads on {cfg.n_kv_head} KV "
+        f"heads, Dh={cfg.head_dim}, {moe.num_params(cfg) / 1e9:.3f} B params"
+        f" ({moe.active_params(cfg) / 1e9:.3f} B active); B={B} T={T} bf16 "
+        f"remat: forward K1 launches {first['forward_launches'][0]}, aux "
+        + ", ".join(f"{k} {v:.5g}" for k, v in first["aux"].items())
+        + f"; first-step loss flash {hist[0][0]:.4f} vs dense "
+        f"{first['dense']:.4f}, |d| {d_loss:.3g} (tol {TOL_TRAIN_LOSS}); "
+        f"loss {' '.join(f'{l:.4f}' for l, _ in hist)}; grad_norm "
+        f"{' '.join(f'{g:.4f}' for _, g in hist)}; launches K1/K2/K3 "
+        f"{launches} over {steps} steps (want {per_step} per step); step "
+        f"{step_ms:.2f} ms (median of steps 3+, the profiled one left out), "
+        f"{B * T / step_ms * 1e3:.0f} tokens/s; peak memory {peak_gb:.2f} GB"
+        f" on {card}")
+    _log_profile("flash", profile, profile_at, secs, MOE_PRESET)
+    if first["forward_launches"] != (cfg.n_layer, 0, 0):
+        raise AssertionError(f"forward launched {first['forward_launches']},"
+                             f" want ({cfg.n_layer}, 0, 0)")
+    if launches != tuple(steps * k for k in per_step):
+        raise AssertionError(f"K1/K2/K3 launches {launches} != {steps} x "
+                             f"{per_step}")
+    if not (first["finite"] and all(math.isfinite(x) for h in hist
+                                    for x in h)
+            and all(math.isfinite(v) for v in first["aux"].values())):
+        raise AssertionError("non-finite MoE logits, aux, loss or grad norm")
+    if not hist[-1][0] < hist[0][0]:
+        raise AssertionError(f"MoE loss did not fall: {hist[0][0]} -> "
+                             f"{hist[-1][0]}")
+    if d_loss > TOL_TRAIN_LOSS:
+        raise AssertionError("flash and dense MoE losses disagree")
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -775,8 +1119,9 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     k1 = phase_kernels(gen)
-    k2, k3 = phase_backward(gen)
+    bwd = phase_backward(gen)
     phase_sweep(gen)
+    torch.cuda.empty_cache()   # the main paths start from an empty cache
 
     # the inference main path: counts from 0, read right after
     _zero_counts()
@@ -787,21 +1132,40 @@ def main() -> int:
     if fa.flash_attention.launches < 1:
         raise AssertionError("the inference path never launched K1")
 
-    # the training main path (this slice's): phase_train zeroes the counts
+    paths = {"gpt2-125m inference": _flash_counts()}
+    # the training main path: phase_train zeroes the counts
     launches = phase_train(card)
+    paths["gpt2-125m train"] = launches
+    torch.cuda.empty_cache()
 
-    src = "ray_tpu/ops/flash_attention.py"
+    # the Llama and MoE paths, each from counts at 0
+    _zero_counts()
+    with torch.no_grad():
+        phase_llama_infer(card)
+    paths[f"{LLAMA_INFER} inference"] = _flash_counts()
+    if fa.flash_attention.launches < 1:
+        raise AssertionError("the llama inference path never launched K1")
+    torch.cuda.empty_cache()
+    paths[f"{LLAMA_TRAIN} train"] = phase_llama_train(card)
+    torch.cuda.empty_cache()
+    _zero_counts()
+    paths[f"{MOE_PRESET} {MOE_LAYERS}-layer train"] = phase_moe(card)
+    log(f"[paths] K1/K2/K3 launches by path: {paths}")
+
+    # each kernel's records by case: the GPT-2 training path's fill the
+    # contract's keys, the Llama paths' go under "llama_shapes"
+    rows = [("flash_fwd (K1)", "flash_fwd.cu", 62, k1),
+            ("flash_bwd_dq (K2)", "flash_bwd.cu", 141,
+             {n: r[0] for n, r in bwd.items()}),
+            ("flash_bwd_dkv (K3)", "flash_bwd.cu", 175,
+             {n: r[1] for n, r in bwd.items()})]
     kernels = [
-        dict(name="flash_fwd (K1)", route="cuda",
-             source="ray_tpu_torch/csrc/flash_fwd.cu", replaces=f"{src}:62",
-             launches=launches[0], **k1),
-        dict(name="flash_bwd_dq (K2)", route="cuda",
-             source="ray_tpu_torch/csrc/flash_bwd.cu", replaces=f"{src}:141",
-             launches=launches[1], **k2),
-        dict(name="flash_bwd_dkv (K3)", route="cuda",
-             source="ray_tpu_torch/csrc/flash_bwd.cu", replaces=f"{src}:175",
-             launches=launches[2], **k3),
-    ]
+        dict(name=name, route="cuda", source=f"ray_tpu_torch/csrc/{cu}",
+             replaces=f"ray_tpu/ops/flash_attention.py:{line}",
+             launches=launches[i], **by_case["train-path"],
+             launches_by_path={p: c[i] for p, c in paths.items()},
+             llama_shapes={n: by_case[n] for n in LLAMA_SHAPES})
+        for i, (name, cu, line, by_case) in enumerate(rows)]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,10 @@ Ported so far:
 - GPT-2 training on one device (`models.gpt2` gradients with remat and
   chunked cross-entropy, `train.spmd.compile_gpt2_train` with the optax-exact
   `default_optimizer`);
+- the Llama and MoE families on one device (`models.llama`: RMSNorm, RoPE,
+  grouped-query attention, SwiGLU, KV-cache decode; `models.moe`: top-k
+  routing with capacity, dense dispatch), trained through
+  `train.spmd.compile_model_train`;
 - all three flash-attention kernels of the JAX package as hand-written
   sm_90a CUDA kernels behind one `torch.autograd.Function`
   (`ops.flash_attention`; forward `csrc/flash_fwd.cu`, backward dQ and

@@ -148,9 +148,17 @@ def params_from_numpy(flat: Dict[str, np.ndarray], cfg: Optional[GPT2Config]
     """Path-keyed numpy leaves (the JAX tree flattened as `save_params`
     flattens it, ``blocks/...`` stacked ``[n_layer, ...]``) -> params. With
     `cfg`, every leaf's shape is checked and cast to ``cfg.param_dtype``."""
+    return _params_from_flat(flat, param_shapes(cfg) if cfg is not None
+                             else None, cfg, device)
+
+
+def _params_from_flat(flat: Dict[str, np.ndarray],
+                      want: Optional[Dict[str, tuple]], cfg, device
+                      ) -> Params:
+    """params_from_numpy of any model family: `want` is its param_shapes
+    (None: take the leaves as they are)."""
     device = default_device(device)
-    if cfg is not None:
-        want = param_shapes(cfg)
+    if want is not None:
         if set(want) != set(flat):
             raise ValueError(f"checkpoint keys differ: missing "
                              f"{sorted(set(want) - set(flat))}, extra "

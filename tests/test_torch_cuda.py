@@ -254,3 +254,75 @@ def test_f32_stays_on_the_fma_route(cuda):
     with pytest.raises(AssertionError):
         _close(P.flash_attention_fwd(*rounded, True)[0], want[0],
                TOL[torch.float32])
+
+
+# ---- the Llama family's shapes: grouped-query K/V and Dh=128 ----
+# (tinyllama-1.1b's training and llama3-8b's forward shapes, cut in B and T
+# to run in seconds; K/V are expanded from n_kv_head heads as
+# models.llama.attention hands them to the kernels)
+
+def _gqa_inputs(device, B, H, KV, T, D, seed):
+    """q, k, v, dO [B, H, T, Dh] bf16 laid out as the Llama path makes them:
+    transposed views of [B, T, H, Dh] tensors, k and v expanded from KV
+    heads (query head h reads KV head h // (H // KV))."""
+    from ray_tpu_torch.models.llama import expand_kv
+
+    rng = np.random.default_rng(seed)
+
+    def draw(heads):
+        return torch.from_numpy(rng.standard_normal(
+            (B, T, heads, D), dtype=np.float32)).to(device, torch.bfloat16)
+
+    q, k, v, do = draw(H), draw(KV), draw(KV), draw(H)
+    k, v = expand_kv(k, H // KV), expand_kv(v, H // KV)
+    return [t.transpose(1, 2) for t in (q, k, v, do)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D", [(32, 4, 64), (32, 8, 128)],
+                         ids=["tinyllama-gqa8-dh64", "llama3-gqa4-dh128"])
+def test_bf16_k1_k2_k3_at_llama_shapes(cuda, H, KV, D):
+    q, k, v, do = _gqa_inputs(cuda, 1, H, KV, 512, D, seed=21)
+    got, want = _k1_k3(q, k, v, do, True)
+    for g, w, tol in zip(got, want, _tols(torch.bfloat16)):
+        _close(g, w, tol)
+
+
+def _llama_tiny_run(device, **kw):
+    """llama-tiny in f32 from seeded CPU params: (logits, loss, grads)."""
+    from ray_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.preset("llama-tiny", dtype=torch.float32, **kw)
+    params = llama.init_params(torch.Generator().manual_seed(0), cfg,
+                               device=device)
+    leaves = llama._gpt2._flatten(params)
+    for leaf in leaves.values():
+        leaf.requires_grad_()
+    toks = torch.from_numpy(np.random.default_rng(22).integers(
+        0, cfg.vocab_size, (2, 129))).to(device)
+    logits = llama.forward(params, toks[:, :-1], cfg).detach()
+    loss = llama.loss_fn(params, {"tokens": toks}, cfg)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return logits, loss.detach(), dict(zip(leaves, grads))
+
+
+@pytest.mark.cuda
+def test_llama_tiny_on_cuda_matches_cpu(cuda):
+    # f32, flash with remat: K1-K3 on the card (their f32 route) against
+    # their plain versions on the CPU, with cuBLAS's f32 products (no TF32)
+    # against the CPU's. Logits atol=1e-4, rtol=1e-4; loss abs 1e-5;
+    # gradients atol=1e-5, rtol=1e-4, the JAX parity tests' f32 bounds
+    counters = (P.flash_attention, P.flash_attention_bwd_dq,
+                P.flash_attention_bwd_dkv)
+    before = [f.launches for f in counters]
+    logits, loss, grads = _llama_tiny_run(cuda, attn_impl="flash", remat=True)
+    torch.cuda.synchronize()
+    # forward (2 layers), loss forward (2) and its remat recompute (2); the
+    # backward's K2 and K3 once a layer
+    assert [f.launches - b for f, b in zip(counters, before)] == [6, 2, 2]
+    want = _llama_tiny_run("cpu", attn_impl="flash", remat=True)
+    _close(logits, want[0], dict(atol=1e-4, rtol=1e-4))
+    assert loss.item() == pytest.approx(want[1].item(), abs=1e-5)
+    for key, g in grads.items():
+        np.testing.assert_allclose(g.cpu().numpy(), want[2][key].numpy(),
+                                   atol=1e-5, rtol=1e-4, err_msg=key)
