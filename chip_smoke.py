@@ -24,6 +24,13 @@ Phases, each reported on its own line:
 5. the continuous-batching server at full width answering requests, with
    chunked prefill and a prefix-cache hit, greedy output equal with and
    without prefix reuse;
+5b. the OpenAI-compatible server at full width with three rank-8 LoRA
+   adapters under an LRU of two: each adapter moves greedy output and the
+   base's stays, the evicted engine's thread ends and its memory is freed,
+   the merge on the card within its bound of the CPU merge, the adapter's
+   first-token logits against the flash forward (K1), a batch_call burst
+   with one malformed item, chat streaming equal to the request without
+   it, and KV export/import between engines with deferred admission;
 6. GPT-2-125M training at full width (bench.py's defaults: B=24, T=1024,
    remat "dots", flash attention) through compile_gpt2_train: exact kernel
    launches per step, a falling loss on a repeated batch, the first steps
@@ -42,11 +49,12 @@ Phases, each reported on its own line:
    steps through compile_model_train with exact launches per step.
 Phase 2 also holds the kernels at the Llama paths' shapes (tinyllama's
 training, llama3-8b's forward, K/V expanded from the KV heads) and times
-that expansion. Phases 4-5 (GPT-2 inference), 6 (GPT-2 training), 7, 8 and
-9 are the main paths: every kernel's launch count is set to 0 before each
-and read right after. The line before the last lists the kernels as JSON,
-with the GPT-2 training path's counts under "launches" and every path's
-under "launches_by_path"; the last line is {"ok": true, "device": {...}}.
+that expansion. Phases 4-5 (GPT-2 inference), 5b (the OpenAI server), 6
+(GPT-2 training), 7, 8 and 9 are the main paths: every kernel's launch
+count is set to 0 before each and read right after. The line before the
+last lists the kernels as JSON, with the GPT-2 training path's counts under
+"launches" and every path's under "launches_by_path"; the last line is
+{"ok": true, "device": {...}}.
 Any failure raises and the script exits non-zero without that line. Needs
 one CUDA card; imports nothing of JAX.
 
@@ -63,11 +71,16 @@ import math
 import os
 import re
 import shutil
+import gc
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import types
+import weakref
+from concurrent.futures import Future
 
 import torch
 import torch.nn.functional as F
@@ -75,7 +88,8 @@ import torch.nn.functional as F
 from ray_tpu_torch.models import gpt2, llama, moe
 from ray_tpu_torch.ops import _kernels
 from ray_tpu_torch.ops import flash_attention as fa
-from ray_tpu_torch.serve.llm import LLMEngine, LLMServer
+from ray_tpu_torch.serve.compiled_chain import CHAIN_ERR
+from ray_tpu_torch.serve.llm import LLMEngine, LLMServer, OpenAIServer
 from ray_tpu_torch.train import spmd
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel
@@ -141,6 +155,20 @@ TOL_TRAIN_GRAD_NORM = 2e-2
 # about the logits' std).
 TOL_LLAMA_MAX = 0.5
 TOL_LLAMA_MEAN = 0.1
+
+# The OpenAI phase's LoRA adapters: rank 8 on the stacked QKV and MLP-in
+# weights, A and B drawn by numpy from LORA_SEED with std LORA_STD, alpha 16:
+# delta = 2 A @ B has std 2·sqrt(8)·0.094² = 0.05, 2.5x the weights' 0.02,
+# enough to move greedy output. The merge on the card is held against the
+# same merge on the CPU, both f32 without TF32: each sums r products in its
+# own order (at most r·2^-23·(alpha/r)·Σ_k|A_ik||B_kj| off the exact delta)
+# and rounds W + delta once (2^-24·|W + delta| each), so elementwise
+# |d| <= 2·r·2^-23·(alpha/r)·Σ_k|A_ik||B_kj| + 2^-23·|W + delta|.
+LORA_RANK = 8
+LORA_ALPHA = 16.0
+LORA_STD = 0.094
+LORA_SEED = 0
+LORA_TARGETS = ("blocks.attn.wqkv", "blocks.mlp.wi")
 
 # The main paths' sizes: GPT-2-125M at its published widths and window
 # (1024), the forward at B=4, training at bench.py's per-device batch of 24.
@@ -618,6 +646,30 @@ def _prompt(seed: int, n: int, prefix=()) -> list:
     return list(prefix) + tail
 
 
+def _first_token_logits(eng, prompt: list) -> tuple:
+    """The first generated token's logits two ways: the engine's chunked
+    prefill (dense cache attention) vs `gpt2.forward`'s last position (the
+    flash kernel K1 where len(prompt) % 128 == 0). (max |d|, argmax)."""
+    device, B = eng.device, eng.max_batch
+    with torch.inference_mode():
+        ids = torch.tensor([prompt], device=device)
+        fwd_last = gpt2.forward(eng.params, ids, eng.cfg)[0, -1].float()
+        cache = gpt2.init_cache(eng.cfg, B, eng.max_seq_len, device=device)
+        C = eng.prefill_chunk_size
+        for p0 in range(0, len(prompt), C):
+            n = min(C, len(prompt) - p0)
+            toks = torch.zeros((B, C), dtype=torch.long, device=device)
+            toks[0, :n] = ids[0, p0:p0 + n]
+            lanes = torch.zeros((B,), dtype=torch.long, device=device)
+            lanes[0] = n
+            pos0 = torch.zeros((B,), dtype=torch.long, device=device)
+            pos0[0] = p0
+            logits, cache = gpt2.prefill_chunk(
+                eng.params, cache, toks, pos0, lanes, lanes > 0, eng.cfg)
+    return (float((logits[0] - fwd_last).abs().max()),
+            int(logits[0].argmax()))
+
+
 def phase_serve(card: str) -> None:
     preset, window, device = PRESET, SERVE_WINDOW, DEVICE
     server = LLMServer(preset=preset, max_batch=4, max_seq_len=window,
@@ -673,23 +725,7 @@ def phase_serve(card: str) -> None:
         same = (cached_b["choices"][0]["token_ids"] == plain_b
                 and tok_a == plain_a)
 
-        # first generated token's logits: the engine's prefill path vs
-        # forward's last position (T = 256: the flash kernel)
-        with torch.inference_mode():
-            ids = torch.tensor([a], device=device)
-            fwd_last = gpt2.forward(eng.params, ids, eng.cfg)[0, -1].float()
-            cache = gpt2.init_cache(eng.cfg, 4, window, device=device)
-            C = eng.prefill_chunk_size
-            for p0 in range(0, len(a), C):
-                n = min(C, len(a) - p0)
-                toks = torch.zeros((4, C), dtype=torch.long, device=device)
-                toks[0, :n] = ids[0, p0:p0 + n]
-                lanes = torch.tensor([n, 0, 0, 0], device=device)
-                pos0 = torch.tensor([p0, 0, 0, 0], device=device)
-                logits, cache = gpt2.prefill_chunk(
-                    eng.params, cache, toks, pos0, lanes, lanes > 0, eng.cfg)
-        first_err = float((logits[0] - fwd_last).abs().max())
-        first_tok = int(logits[0].argmax())
+        first_err, first_tok = _first_token_logits(eng, a)
         log(f"[serve {preset}] max_batch=4 window={window} chunk=64: "
             f"{len(batch)} concurrent requests, {n_tok} tokens in "
             f"{wall:.3f} s = {n_tok / wall:.1f} tok/s, mean TTFT "
@@ -707,6 +743,292 @@ def phase_serve(card: str) -> None:
         server.shutdown()
         if plain is not None:
             plain.shutdown()
+
+
+def _write_adapters(root: str, cfg, names) -> None:
+    import numpy as np
+
+    rng = np.random.default_rng(LORA_SEED)
+    L, D, r = cfg.n_layer, cfg.d_model, LORA_RANK
+    width = {"blocks.attn.wqkv": 3 * cfg.d_model, "blocks.mlp.wi": cfg.d_ff}
+    for name in names:
+        arrays = {}
+        for path in LORA_TARGETS:
+            arrays[f"{path}.A"] = LORA_STD * rng.standard_normal(
+                (L, D, r), dtype=np.float32)
+            arrays[f"{path}.B"] = LORA_STD * rng.standard_normal(
+                (L, r, width[path]), dtype=np.float32)
+            arrays[f"{path}.alpha"] = np.float32(LORA_ALPHA)
+        np.savez(os.path.join(root, f"{name}.npz"), **arrays)
+
+
+def _leaf(params, path: str):
+    for key in path.split("."):
+        params = params[key]
+    return params
+
+
+def _merge_gap(eng, base, adapter: dict) -> tuple:
+    """An adapter engine's merged leaves (merged on its device) against the
+    same merge on the CPU: (max |d|, largest |d| / bound, within bound)."""
+    sub: dict = {}
+    for path in adapter:
+        *parents, last = path.split(".")
+        node = sub
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = _leaf(base.params, path).cpu()
+    ref = gpt2.apply_lora(sub, adapter)
+    worst, ratio, ok = 0.0, 0.0, True
+    for path, spec in adapter.items():
+        want, got = _leaf(ref, path), _leaf(eng.params, path).cpu()
+        A = torch.from_numpy(spec["A"]).abs()
+        B = torch.from_numpy(spec["B"]).abs()
+        r = A.shape[-1]
+        alpha = float(spec.get("alpha", r))
+        bound = (2 * r * 2.0 ** -23 * (alpha / r) * (A @ B)
+                 + 2.0 ** -23 * want.abs())
+        d = (got - want).abs()
+        worst = max(worst, float(d.max()))
+        ratio = max(ratio, float((d / bound.clamp_min(1e-30)).max()))
+        ok = ok and bool((d <= bound).all())
+    return worst, ratio, ok
+
+
+def _own_bytes(eng, base, params_only: bool = False) -> int:
+    """Bytes of the tensors `eng` holds that `base` does not share: its
+    merged params and, unless params_only, its KV cache and prefix pool."""
+    shared = {t.data_ptr() for t in gpt2._flatten(base.params).values()}
+    held = [t for t in gpt2._flatten(eng.params).values()
+            if t.data_ptr() not in shared]
+    if not params_only:
+        held += [eng.cache["k"], eng.cache["v"]]
+        if eng.kv is not None:
+            held += [eng.kv.pool_k, eng.kv.pool_v]
+    return sum(t.numel() * t.element_size() for t in held)
+
+
+def _stream(server, path: str, body: dict) -> tuple:
+    """A `stream: true` request polled with stream_next to the end:
+    (token ids, text)."""
+    mark = server(types.SimpleNamespace(path=path,
+                                        json={**body, "stream": True}))
+    sid = mark["__sse_stream__"]["stream_id"]
+    toks, text, cursor = [], "", 0
+    deadline = time.time() + 120
+    while time.time() < deadline:
+        part = server.stream_next(sid, cursor)
+        if part.get("error"):
+            raise AssertionError(f"stream failed: {part['error']}")
+        toks += part["token_ids"]
+        text += part["text"]
+        cursor = part["cursor"]
+        if part["done"]:
+            return toks, text
+    raise TimeoutError("stream did not finish in 120 s")
+
+
+def phase_openai(card: str) -> None:
+    """The OpenAI-compatible server at full width with three LoRA adapters
+    (max_loras=2): adapter tenants, the merge on the card, the adapter's
+    first-token logits against forward (K1), a batch_call burst, chat
+    streaming, and KV export/import with deferred admission."""
+    preset, window, device = PRESET, SERVE_WINDOW, DEVICE
+    names = ("ad0", "ad1", "ad2")
+    mid = "gpt2"
+    root = tempfile.mkdtemp(prefix="chip_smoke_lora_")
+    srv = decode = cold = None
+    try:
+        srv = OpenAIServer(model_id=mid, preset=preset, max_batch=4,
+                           max_seq_len=window, seed=0, prefill_chunk_size=64,
+                           lora_root=root, max_loras=2, device=device)
+        base = srv.engine
+        _write_adapters(root, base.cfg, names)
+        completion = "/v1/completions"
+        body = {"prompt_ids": _prompt(20, 64), "max_tokens": 16,
+                "temperature": 0.0}
+
+        # 1. adapters: each moves greedy output, the base's stays put
+        base_toks, _ = _stream(srv, completion, body)
+        build_ms, toks = {}, {}
+
+        def load(name):
+            t0 = time.perf_counter()
+            eng = srv._engine_for({"model": f"{mid}:{name}"})
+            build_ms[name] = (time.perf_counter() - t0) * 1e3
+            toks[name], _ = _stream(srv, completion,
+                                    {**body, "model": f"{mid}:{name}"})
+            return eng
+
+        eng0 = load(names[0])
+        # 3. the adapter's first-token logits: prefill vs forward (K1)
+        long_prompt = _prompt(21, 256)
+        served, _ = _stream(srv, completion, {
+            "prompt_ids": long_prompt, "max_tokens": 2, "temperature": 0.0,
+            "model": f"{mid}:{names[0]}"})
+        first_err, first_tok = _first_token_logits(eng0, long_prompt)
+        # 2. the merge on the card vs on the CPU
+        adapter0 = gpt2.load_lora_npz(os.path.join(root, f"{names[0]}.npz"))
+        merge_d, merge_ratio, merge_ok = _merge_gap(eng0, base, adapter0)
+        load(names[1])
+        base_again, _ = _stream(srv, completion, body)
+
+        # the third adapter evicts the least recently used one (ad0)
+        evicted_bytes = _own_bytes(eng0, base, params_only=True)
+        evicted_thread, evicted_ref = eng0._thread, weakref.ref(eng0)
+        del eng0
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        eng2 = load(names[2])
+        gc.collect()
+        torch.cuda.synchronize()
+        freed = before + _own_bytes(eng2, base) - \
+            torch.cuda.memory_allocated()
+        del eng2
+        models = [m["id"] for m in srv(types.SimpleNamespace(
+            path="/v1/models", json=None))["data"]]
+        log(f"[openai {preset}] adapters rank {LORA_RANK} on "
+            f"{', '.join(LORA_TARGETS)}: base {base_toks[:6]}..., "
+            + ", ".join(f"{n} {toks[n][:6]}..." for n in names)
+            + f"; base after loads equal: {base_again == base_toks}; "
+            f"models {models}; evicted {names[0]}: thread alive "
+            f"{evicted_thread.is_alive()}, engine collected "
+            f"{evicted_ref() is None}, memory freed {freed / 1e6:.1f} MB "
+            f"(its merged params {evicted_bytes / 1e6:.1f} MB); LoRA engine "
+            "build (load, merge, engine start) "
+            + ", ".join(f"{build_ms[n]:.1f}" for n in names)
+            + f" ms on {card}")
+        log(f"[openai {preset}] merge on the card vs the CPU: max |d| "
+            f"{merge_d:.4g}, largest |d|/bound {merge_ratio:.4g} on {card}; "
+            f"{names[0]} first-token logits prefill vs forward max |d| "
+            f"{first_err:.4g} (tol {TOL_LOGITS}), argmax {first_tok} vs "
+            f"served {served[0]}")
+        if any(toks[n] == base_toks for n in names):
+            raise AssertionError("an adapter left greedy output unchanged")
+        if base_again != base_toks:
+            raise AssertionError("loading adapters changed the base output")
+        if (srv.loaded_lora_ids() != list(names[1:])
+                or models != [mid] + [f"{mid}:{n}" for n in names[1:]]):
+            raise AssertionError(f"LRU or /v1/models wrong: {models}")
+        if evicted_thread.is_alive() or evicted_ref() is not None:
+            raise AssertionError("the evicted adapter engine lives on")
+        if freed < evicted_bytes:
+            raise AssertionError(f"eviction freed {freed} bytes, less than "
+                                 f"the engine's {evicted_bytes}")
+        if not merge_ok:
+            raise AssertionError("the merge on the card is past its bound")
+        if not first_err <= TOL_LOGITS or first_tok != served[0]:
+            raise AssertionError("adapter first-token logits disagree with "
+                                 "forward")
+
+        # 4. batch_call: eight requests at once, one malformed
+        reqs = [{"prompt_ids": _prompt(30 + j, n), "max_tokens": 24,
+                 "temperature": 0.0}
+                for j, n in enumerate((40, 300, 90, 12, 500, 130))]
+        reqs.insert(3, {"prompt_ids": _prompt(40, 20), "max_tokens": "x"})
+        reqs.append({"prompt_ids": _prompt(41, 64), "max_tokens": 24,
+                     "temperature": 0.0, "model": f"{mid}:{names[2]}"})
+        engines = [base, srv._lora_engines[names[2]]]
+        steps0 = sum(e.engine_steps for e in engines)
+        ttft0 = [(e.ttft_sum, e.ttft_count) for e in engines]
+        t0 = time.perf_counter()
+        answers = srv.batch_call(reqs)
+        wall = time.perf_counter() - t0
+        steps = sum(e.engine_steps for e in engines) - steps0
+        ttft = (sum(e.ttft_sum - t[0] for e, t in zip(engines, ttft0))
+                / sum(e.ttft_count - t[1] for e, t in zip(engines, ttft0)))
+        errors = [j for j, a in enumerate(answers) if CHAIN_ERR in a]
+        n_tok = sum(a["usage"]["completion_tokens"] for a in answers
+                    if CHAIN_ERR not in a)
+        log(f"[openai {preset}] batch_call of {len(reqs)}: error markers "
+            f"at {errors}; {n_tok} tokens in {steps} engine steps, "
+            f"{wall:.3f} s = {n_tok / wall:.1f} tok/s, mean TTFT "
+            f"{ttft * 1e3:.1f} ms on {card}")
+        if len(answers) != len(reqs) or errors != [3]:
+            raise AssertionError("batch_call lost order or isolation")
+        if not steps < n_tok:
+            raise AssertionError("batch_call items did not share steps")
+
+        # 5. chat streaming against the same chat without streaming
+        msgs = [{"role": "system", "content": "You are terse."},
+                {"role": "user", "content": "Name three colours."}]
+        chat = {"messages": msgs, "max_tokens": 16, "temperature": 0.0}
+        chat_path = "/v1/chat/completions"
+        st_toks, st_text = _stream(srv, chat_path, chat)
+        plain = srv(types.SimpleNamespace(path=chat_path, json=chat))
+        prompt = "".join(f"<|{m['role']}|>{m['content']}" for m in msgs) \
+            + "<|assistant|>"
+        direct = base.generate(prompt, max_tokens=16)
+        log(f"[openai {preset}] chat stream {len(st_toks)} tokens, equal "
+            f"to the request without streaming: "
+            f"{st_toks == direct['token_ids']}")
+        if (st_toks != direct["token_ids"]
+                or st_text != plain["choices"][0]["message"]["content"]
+                or plain["usage"]["prompt_tokens"]
+                != direct["prompt_tokens"]):
+            raise AssertionError("streamed chat differs from the request "
+                                 "without streaming")
+
+        # 6. KV export/import between engines, and deferred admission
+        same = dict(preset=preset, max_batch=4, max_seq_len=window,
+                    params_override=base.params, cfg_override=base.cfg,
+                    weights_id=base.weights_id, prefill_chunk_size=64,
+                    device=device)
+        decode = LLMEngine(**same)
+        cold = LLMEngine(enable_prefix_caching=False, **same)
+        p300 = _prompt(50, 300)
+        want = cold.generate(prompt_ids=p300, max_tokens=16)["token_ids"]
+        base.generate(prompt_ids=p300, max_tokens=1)      # pools its blocks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = base.export_prefix(prompt_ids=p300)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        installed = decode.import_prefix(blob)
+        torch.cuda.synchronize()
+        import_ms = (time.perf_counter() - t0) * 1e3
+        blob_mb = (blob["k"].nbytes + blob["v"].nbytes) / 1e6
+        got = decode.generate(prompt_ids=p300, max_tokens=16)["token_ids"]
+        reused = decode.kv.stats()["tokens_reused"]
+
+        p2, p3 = _prompt(51, 200), _prompt(52, 150)
+        blob2 = base.export_prefix(prompt_ids=p2)
+        want2 = cold.generate(prompt_ids=p2, max_tokens=16)["token_ids"]
+        want3 = cold.generate(prompt_ids=p3, max_tokens=16)["token_ids"]
+        st0 = decode.engine_stats()
+        fut = Future()
+        timer = threading.Timer(0.2, fut.set_result, [blob2])
+        timer.start()
+        got2 = decode.generate(prompt_ids=p2, max_tokens=16,
+                               prefix_future=fut, prefix_wait_s=30)
+        timer.join(10)
+        got3 = decode.generate(prompt_ids=p3, max_tokens=16,
+                               prefix_future=Future(), prefix_wait_s=0.2)
+        st1 = decode.engine_stats()
+        imports = st1["prefix_imports"] - st0["prefix_imports"]
+        timeouts = st1["prefix_wait_timeouts"] - st0["prefix_wait_timeouts"]
+        log(f"[openai {preset}] KV transfer of a 300-token prompt: "
+            f"{len(blob['ids'])} tokens in {installed} blocks, blob "
+            f"{blob_mb:.3f} MB, export {export_ms:.3f} ms, import "
+            f"{import_ms:.3f} ms on {card}; decode equal to a cold engine: "
+            f"{got == want} (tokens reused {reused}); deferred import "
+            f"+{imports} equal: {got2['token_ids'] == want2}; wait timeout "
+            f"+{timeouts} equal: {got3['token_ids'] == want3}")
+        if got != want or reused <= 0 or installed != len(blob["ids"]) // 16:
+            raise AssertionError("imported KV changed the greedy output")
+        if imports != 1 or got2["token_ids"] != want2:
+            raise AssertionError("deferred admission went wrong")
+        if timeouts != 1 or got3["token_ids"] != want3:
+            raise AssertionError("the prefix wait deadline went wrong")
+        srv.check_health()
+    finally:
+        for eng in (decode, cold):
+            if eng is not None:
+                eng.shutdown()
+        if srv is not None:
+            srv.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _flash_counts() -> tuple:
@@ -1131,8 +1453,19 @@ def main() -> int:
     log(f"[inference path] K1/K2/K3 launches {_flash_counts()}")
     if fa.flash_attention.launches < 1:
         raise AssertionError("the inference path never launched K1")
-
     paths = {"gpt2-125m inference": _flash_counts()}
+
+    # the OpenAI server with LoRA adapters, from counts at 0
+    _zero_counts()
+    t0 = time.perf_counter()
+    phase_openai(card)
+    paths["gpt2-125m openai+lora"] = _flash_counts()
+    log(f"[openai path] K1/K2/K3 launches {_flash_counts()}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if fa.flash_attention.launches < 1:
+        raise AssertionError("the OpenAI path never launched K1")
+    torch.cuda.empty_cache()
+
     # the training main path: phase_train zeroes the counts
     launches = phase_train(card)
     paths["gpt2-125m train"] = launches

@@ -6,7 +6,10 @@ JAX). Entry points run on CUDA unless the caller passes ``device="cpu"``.
 
 Ported so far:
 - GPT-2 inference and serving (`models.gpt2`, `models.lm`,
-  `serve.kv_cache`, `serve.llm`);
+  `serve.kv_cache`, `serve.llm`), with the OpenAI-compatible server, LoRA
+  tenants (`models.gpt2.apply_lora`), `batch_call`, streaming and KV
+  transfer between engines (`serve.llm`, `serve.prefix_store` keys,
+  `serve.compiled_chain` markers, `utils.fs`);
 - GPT-2 training on one device (`models.gpt2` gradients with remat and
   chunked cross-entropy, `train.spmd.compile_gpt2_train` with the optax-exact
   `default_optimizer`);

@@ -468,3 +468,57 @@ def load_params(path: str, cfg: Optional[GPT2Config] = None, device=None
     with np.load(os.path.join(path, "params.npz")) as z:
         flat = {k: z[k] for k in z.files}
     return params_from_numpy(flat, cfg, device), cfg
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters
+# ---------------------------------------------------------------------------
+
+def apply_lora(params: Params, adapter: dict) -> Params:
+    """Merge low-rank adapters into a copy of `params`.
+
+    `adapter`: {"dotted.path": {"A": [..., D, r], "B": [..., r, K],
+    "alpha": float}}; delta = (alpha / r) * A @ B, alpha defaulting to r.
+    Stacked block params ([L, D, K]) take stacked A/B ([L, D, r],
+    [L, r, K]) through a batched matmul. Only the dicts down each targeted
+    path are copied and only the targeted leaves are new tensors: every
+    other leaf is the base's own tensor, and no base tensor is written. A/B
+    are cast to the leaf's dtype and device."""
+    out = dict(params)
+    for path, spec in adapter.items():
+        keys = path.split(".")
+        node = out
+        for k in keys[:-1]:
+            node[k] = dict(node[k]) if isinstance(node[k], dict) else node[k]
+            node = node[k]
+        leaf = node[keys[-1]]
+        A = torch.as_tensor(spec["A"]).to(device=leaf.device, dtype=leaf.dtype)
+        B = torch.as_tensor(spec["B"]).to(device=leaf.device, dtype=leaf.dtype)
+        r = A.shape[-1]
+        alpha = float(spec.get("alpha", r))
+        delta = (alpha / r) * (A @ B)
+        if delta.shape != leaf.shape:
+            raise ValueError(
+                f"LoRA delta shape {tuple(delta.shape)} != param "
+                f"{tuple(leaf.shape)} at {path!r}")
+        node[keys[-1]] = leaf + delta
+    return out
+
+
+def load_lora_npz(path: str) -> dict:
+    """Adapter file: npz with `<dotted.path>.A`, `<dotted.path>.B` and
+    optional `<dotted.path>.alpha` entries (local path or fsspec URI)."""
+    from ray_tpu_torch.utils import fs
+
+    with fs.open(path, "rb") as f:
+        data = np.load(f)
+        adapter: dict = {}
+        for name in data.files:
+            base, _, kind = name.rpartition(".")
+            if kind not in ("A", "B", "alpha"):
+                continue
+            adapter.setdefault(base, {})[kind] = data[name]
+    missing = [k for k, v in adapter.items() if "A" not in v or "B" not in v]
+    if missing:
+        raise ValueError(f"LoRA entries missing A/B pairs: {missing}")
+    return adapter

@@ -6,7 +6,14 @@ A fixed batch of KV-cache slots runs `gpt2.decode_step` /
 others finish (continuous batching), long prompts prefill in chunks under a
 token budget, and prompts that share a prefix reuse pooled KV blocks
 (`serve/kv_cache.py`). The engine runs on its own thread; a failed step fails
-the requests it carried and the engine keeps serving.
+the requests it carried and the engine keeps serving. A prefill engine's
+pooled KV blocks export as host blobs that a decode engine imports, and a
+request can wait for such a blob (a prefix future) while other lanes decode.
+
+`LLMServer` is the deployment callable (`batch_call` admits a batch of
+requests at once so they share steps); `OpenAIServer` serves /v1/models,
+/v1/completions and /v1/chat/completions, streaming included, with LoRA
+adapters merged into per-adapter engines under an LRU.
 """
 
 from __future__ import annotations
@@ -16,6 +23,9 @@ import threading
 import time
 import traceback
 import uuid
+from collections import OrderedDict
+from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutureTimeout
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -38,14 +48,41 @@ class ByteTokenizer:
             "utf-8", errors="replace")
 
 
+class HFTokenizer:
+    """transformers tokenizer adapter for the served checkpoint's vocabulary.
+    The vocabulary must already be on disk: construction never downloads
+    (`local_files_only=True`) and fails instead."""
+
+    def __init__(self, name_or_path: str):
+        try:
+            from transformers import AutoTokenizer
+        except ImportError as e:
+            raise ImportError("HFTokenizer requires `transformers`") from e
+        self._tok = AutoTokenizer.from_pretrained(name_or_path,
+                                                  local_files_only=True)
+        self.eos_id = self._tok.eos_token_id or 0
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok.encode(text)
+
+    def decode(self, ids: List[int]) -> str:
+        return self._tok.decode(ids)
+
+
 class _Request:
     def __init__(self, prompt_ids: List[int], max_tokens: int,
-                 temperature: float, top_k: int = 0, top_p: float = 1.0):
+                 temperature: float, top_k: int = 0, top_p: float = 1.0,
+                 prefix_future=None, prefix_wait_s: float = 30.0):
         self.prompt_ids = prompt_ids
         self.max_tokens = max_tokens
         self.temperature = temperature
         self.top_k = top_k
         self.top_p = top_p
+        # a concurrent.futures.Future resolving to a KV blob (or None): the
+        # engine parks this request until the blob lands, other lanes keep
+        # decoding, and prefills locally at the deadline
+        self.prefix_future = prefix_future
+        self.prefix_deadline = time.time() + prefix_wait_s
         self.generated: List[int] = []
         self.done = threading.Event()
         self.error: Optional[str] = None
@@ -101,6 +138,7 @@ class LLMEngine:
 
     Weights come from `checkpoint` (a `gpt2.save_params` directory, either
     package's), from `params_override` (+ `cfg_override`), or from `seed`.
+    `weights_id` names them for prefix-store keys (`prefix_model_key`).
     `device` defaults to CUDA and raises when there is none.
     """
 
@@ -116,7 +154,7 @@ class LLMEngine:
                  prefill_chunk_size: int = 16,
                  max_num_batched_tokens: Optional[int] = None,
                  params_override=None, cfg_override=None,
-                 device=None):
+                 weights_id: Optional[str] = None, device=None):
         from ray_tpu_torch.models import gpt2
         from ray_tpu_torch.utils.platform import default_device
 
@@ -143,6 +181,15 @@ class LLMEngine:
             self.cfg = gpt2.GPT2Config.preset(preset, **overrides)
             gen = torch.Generator().manual_seed(seed)
             self.params = gpt2.init_params(gen, self.cfg, self.device)
+        # weight identity for prefix-store keys: engines whose KV is
+        # interchangeable agree on it. LoRA engines pass the base's id; an
+        # override without one gets a unique id, which never collides
+        if weights_id is not None:
+            self.weights_id = weights_id
+        elif params_override is not None:
+            self.weights_id = f"override-{uuid.uuid4().hex[:12]}"
+        else:
+            self.weights_id = checkpoint or f"{preset}@seed{seed}"
         self.max_batch = max_batch
         # the caller's window caps KV-cache memory even when a checkpoint's
         # architecture allows a longer context
@@ -172,6 +219,10 @@ class LLMEngine:
         self._slots: List[Optional[_Request]] = [None] * max_batch
         self._slot_pos = [0] * max_batch
         self._slot_prefill: List[List[int]] = [[] for _ in range(max_batch)]
+        # requests whose prefix blob is still in flight park here while
+        # other lanes decode; resolved ones re-enter admission first
+        self._deferred: List[_Request] = []
+        self._ready: List[_Request] = []
         self._stop = threading.Event()
         self._stats_lock = threading.Lock()
         self.total_generated = 0
@@ -179,21 +230,44 @@ class LLMEngine:
         self.chunk_steps = 0           # steps that ran prefill_chunk
         self.tokens_prefilled = 0      # prompt tokens processed
         self.step_errors = 0           # steps that raised
+        self.prefix_imports = 0        # deferred blobs installed
+        self.prefix_blocks_imported = 0
+        self.prefix_wait_timeouts = 0  # deadline hit: local prefill
         self.ttft_sum = 0.0            # submit -> first generated token
         self.ttft_count = 0
         self.last_ttft_s = 0.0
+        # callables that must run on the engine thread, between steps: the
+        # KV pool is engine-owned, unlocked state
+        self._engine_calls: "queue.Queue" = queue.Queue()
         self._thread = threading.Thread(target=self._engine_loop, daemon=True,
                                         name="llm-engine")
         self._thread.start()
 
     # ------------------------------------------------------------- public
+    @property
+    def prefix_model_key(self) -> Optional[str]:
+        """Prefix-store key: engines with interchangeable KV (same weights
+        and cache geometry) agree, anything else differs. The same string
+        as the JAX package's engine gives."""
+        if self.kv is None:
+            return None
+        from ray_tpu_torch.serve.prefix_store import model_cache_key
+
+        cfg = self.cfg
+        return model_cache_key(self.weights_id, cfg.n_layer, cfg.n_head,
+                               cfg.head_dim,
+                               str(cfg.dtype).removeprefix("torch."),
+                               self.kv.block_size)
+
     def generate(self, prompt: str = "", prompt_ids: Optional[List[int]] = None,
                  max_tokens: int = 16, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 1.0,
-                 timeout: float = 120.0) -> Dict[str, Any]:
+                 timeout: float = 120.0, prefix_future=None,
+                 prefix_wait_s: float = 30.0) -> Dict[str, Any]:
         req = self._make_request(prompt, prompt_ids, max_tokens,
-                                 temperature, top_k, top_p)
-        self._queue.put(req)
+                                 temperature, top_k, top_p,
+                                 prefix_future, prefix_wait_s)
+        self._submit(req)
         if not req.done.wait(timeout):
             raise TimeoutError("generation timed out")
         if req.error:
@@ -204,25 +278,35 @@ class LLMEngine:
                 "completion_tokens": len(req.generated)}
 
     def _make_request(self, prompt, prompt_ids, max_tokens, temperature,
-                      top_k, top_p) -> _Request:
+                      top_k, top_p, prefix_future=None,
+                      prefix_wait_s: float = 30.0) -> _Request:
         ids = prompt_ids if prompt_ids is not None else \
             self.tokenizer.encode(prompt)
         ids = list(ids) or [self.tokenizer.eos_id]
         ids = ids[-(self.max_seq_len - 2):]
         budget = self.max_seq_len - len(ids) - 1
         return _Request(ids, max(0, min(max_tokens, budget)), temperature,
-                        top_k=top_k, top_p=top_p)
+                        top_k=top_k, top_p=top_p, prefix_future=prefix_future,
+                        prefix_wait_s=prefix_wait_s)
+
+    def _submit(self, req: _Request) -> None:
+        if self._stop.is_set():
+            raise RuntimeError("engine shut down")
+        self._queue.put(req)
 
     def start_stream(self, prompt: str = "",
                      prompt_ids: Optional[List[int]] = None,
                      max_tokens: int = 16, temperature: float = 0.0,
-                     top_k: int = 0, top_p: float = 1.0) -> str:
-        """Admit a request for incremental consumption via stream_next."""
+                     top_k: int = 0, top_p: float = 1.0,
+                     prefix_future=None, prefix_wait_s: float = 30.0) -> str:
+        """Admit a request for incremental consumption via stream_next (the
+        engine path behind OpenAI `stream: true`)."""
         req = self._make_request(prompt, prompt_ids, max_tokens,
-                                 temperature, top_k, top_p)
+                                 temperature, top_k, top_p,
+                                 prefix_future, prefix_wait_s)
         sid = uuid.uuid4().hex
         self._streams[sid] = (req, time.time())
-        self._queue.put(req)
+        self._submit(req)
         return sid
 
     def stream_next(self, stream_id: str, cursor: int = 0,
@@ -264,23 +348,148 @@ class LLMEngine:
                 "done": done, "cursor": cursor + len(new),
                 "finish_reason": req.finish_reason if done else None}
 
+    # --------------------------------------------- KV transfer (prefill/decode)
+    def export_prefix(self, prompt: str = "",
+                      prompt_ids: Optional[List[int]] = None):
+        """Prefill side of disaggregated serving: run (or reuse) the prompt's
+        prefill, then hand back a host blob of its pooled KV blocks for a
+        decode engine to import (`kv_cache.export_prefix`'s schema)."""
+        if self.kv is None:
+            raise RuntimeError("prefix caching disabled: no KV to export")
+        ids = prompt_ids if prompt_ids is not None else \
+            self.tokenizer.encode(prompt)
+        ids = list(ids)[-(self.max_seq_len - 2):]
+        blob = self.export_pooled(ids[:-1])
+        if blob is None or len(blob["ids"]) < len(ids) - 1 - \
+                (len(ids) - 1) % self.kv.block_size:
+            # not pooled yet: a one-token generation prefills the prompt and
+            # pools its blocks
+            self.generate(prompt_ids=ids, max_tokens=1)
+            blob = self.export_pooled(ids[:-1])
+        return blob
+
+    def export_pooled(self, ids: List[int], timeout: float = 30.0):
+        """Export `ids`' pooled KV blocks, on the engine thread: an export
+        racing a block's eviction and reuse could copy another request's
+        bytes under this prompt's hash."""
+        from ray_tpu_torch.serve.kv_cache import export_prefix as _export
+
+        ids = list(ids)
+        return self._on_engine(lambda: _export(self.kv, ids), timeout)
+
+    def import_prefix(self, blob, timeout: float = 30.0) -> int:
+        """Decode side: install exported KV blocks (on the engine thread);
+        later prompts that share the prefix skip its prefill. Returns the
+        number of new blocks installed."""
+        if self.kv is None:
+            raise RuntimeError("prefix caching disabled: no KV to import")
+        from ray_tpu_torch.serve.kv_cache import import_prefix as _import
+
+        return self._on_engine(lambda: _import(self.kv, blob), timeout)
+
+    def _on_engine(self, fn, timeout: float):
+        """fn() run on the engine thread between steps, its result or its
+        exception handed back. Runs fn here when called from the engine
+        thread or once the engine has stopped, and also when the engine has
+        not taken the call within `timeout` (a wedged engine)."""
+        if (threading.current_thread() is self._thread
+                or not self._thread.is_alive()):
+            return fn()
+        fut: Future = Future()
+
+        def call():
+            if not fut.set_running_or_notify_cancel():
+                return
+            try:
+                fut.set_result(fn())
+            except BaseException as e:   # handed to the caller
+                fut.set_exception(e)
+
+        self._engine_calls.put(call)
+        try:
+            return fut.result(timeout=timeout)
+        except FutureTimeout:
+            if fut.cancel():
+                return fn()
+            return fut.result(timeout=timeout)
+
     def shutdown(self, timeout: float = 10.0):
+        """Stop the engine thread and join it (unless called from it). The
+        requests it still held fail with "engine shut down"."""
         self._stop.set()
         if self._thread is not threading.current_thread():
             self._thread.join(timeout)
 
     # ------------------------------------------------------------- engine
     def _admit(self):
+        self._admit_deferred()
         if self.scheduler == "fixed" and any(r is not None
                                              for r in self._slots):
             return     # a new batch forms only once every slot is free
         for i in range(self.max_batch):
             if self._slots[i] is None:
-                try:
-                    req = self._queue.get_nowait()
-                except queue.Empty:
+                req = self._next_ready()
+                if req is None:
                     return
                 self._place(i, req)
+
+    def _next_ready(self) -> Optional[_Request]:
+        """Next admittable request: resolved deferred requests first, then
+        the queue. A queued request whose prefix blob is still in flight
+        parks in `_deferred` and its slot goes to the next request."""
+        while True:
+            if self._ready:
+                return self._ready.pop(0)
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                return None
+            fut = req.prefix_future
+            if fut is not None and not fut.done() \
+                    and time.time() < req.prefix_deadline:
+                self._deferred.append(req)
+                continue
+            self._resolve_prefix(req)
+            return req
+
+    def _admit_deferred(self) -> None:
+        """Move parked requests whose blob landed (imported here, on the
+        engine thread) or whose deadline passed (local prefill) to
+        `_ready`."""
+        if not self._deferred:
+            return
+        now = time.time()
+        still: List[_Request] = []
+        for req in self._deferred:
+            fut = req.prefix_future
+            if fut is not None and not fut.done() \
+                    and now < req.prefix_deadline:
+                still.append(req)
+                continue
+            self._resolve_prefix(req)
+            self._ready.append(req)
+        self._deferred = still
+
+    def _resolve_prefix(self, req: _Request) -> None:
+        fut, req.prefix_future = req.prefix_future, None
+        if fut is None:
+            return
+        blob = None
+        if fut.done():
+            try:
+                blob = fut.result()
+            except Exception:
+                blob = None   # a failed fetch: local prefill
+        else:
+            fut.cancel()      # deadline passed: prefill locally instead
+            self.prefix_wait_timeouts += 1
+        if blob and self.kv is not None:
+            try:
+                installed = self.import_prefix(blob)
+            except Exception:  # a bad blob: local prefill is always correct
+                return
+            self.prefix_imports += 1
+            self.prefix_blocks_imported += installed
 
     def _place(self, i: int, req: _Request) -> None:
         self._slots[i] = req
@@ -310,6 +519,7 @@ class LLMEngine:
                 if time.time() - last_sweep > 60:
                     last_sweep = time.time()
                     self._sweep_streams()
+                self._run_engine_calls()
                 self._admit()
                 live = [i for i, r in enumerate(self._slots) if r is not None]
                 if not live:
@@ -322,22 +532,49 @@ class LLMEngine:
                     else:
                         self._run_decode_step(live, rng)
                 except Exception:  # the engine thread must keep serving
-                    self._fail_live(live, traceback.format_exc())
+                    self.step_errors += 1
+                    self._fail_live(live, "engine step failed:\n"
+                                    + traceback.format_exc())
+            # stopped: no request waits on a thread that is gone
+            self._run_engine_calls()
+            self._fail_live(range(self.max_batch), "engine shut down")
+            waiting = self._deferred + self._ready
+            self._deferred, self._ready = [], []
+            while True:
+                try:
+                    waiting.append(self._queue.get_nowait())
+                except queue.Empty:
+                    break
+            for req in waiting:
+                self._fail(req, "engine shut down")
+
+    def _run_engine_calls(self) -> None:
+        """Run the calls other threads queued for this thread (each hands
+        its own result or exception back through its future)."""
+        while True:
+            try:
+                call = self._engine_calls.get_nowait()
+            except queue.Empty:
+                return
+            call()
+
+    @staticmethod
+    def _fail(req: _Request, err: str) -> None:
+        req.error = err
+        req.done.set()
+        with req.progress:
+            req.progress.notify_all()
 
     def _fail_live(self, live, err: str) -> None:
-        """A step raised: fail the requests it carried and free their slots.
-        Their cache lanes are rewritten from position 0 by the next
-        request placed there."""
-        self.step_errors += 1
+        """Fail the requests in the `live` slots and free the slots. Their
+        cache lanes are rewritten from position 0 by the next request placed
+        there."""
         for i in live:
             req = self._slots[i]
             if req is None:
                 continue
             self._slots[i] = None
-            req.error = f"engine step failed:\n{err}"
-            req.done.set()
-            with req.progress:
-                req.progress.notify_all()
+            self._fail(req, err)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -481,38 +718,73 @@ class LLMEngine:
                 "chunk_steps": self.chunk_steps,
                 "tokens_prefilled": self.tokens_prefilled,
                 "step_errors": self.step_errors,
+                "prefix_imports": self.prefix_imports,
+                "prefix_blocks_imported": self.prefix_blocks_imported,
+                "prefix_wait_timeouts": self.prefix_wait_timeouts,
                 "queued": self._queue.qsize(),
+                "deferred": len(self._deferred),
                 "slots_busy": sum(r is not None for r in self._slots),
                 "ttft_avg_s": ttft_avg,
                 "last_ttft_s": last_ttft}
 
 
 class LLMServer:
-    """Deployment callable: OpenAI-completions-shaped request handling."""
+    """Deployment callable: OpenAI-completions-shaped request handling.
+
+    `cluster_prefix_cache=True` (warm starts from prefixes computed by other
+    replicas) needs the cluster prefix store, which rides the object plane
+    and is not ported yet: it raises. Without it, as outside a cluster in
+    the JAX package, no request gets a prefix future and nothing is
+    published."""
 
     def __init__(self, preset: str = "gpt2-tiny", max_batch: int = 4,
                  max_seq_len: int = 128, model_overrides: Optional[dict] = None,
                  checkpoint: Optional[str] = None, tokenizer: Any = None,
+                 cluster_prefix_cache: bool = False,
                  **engine_kwargs):
+        if cluster_prefix_cache:
+            raise NotImplementedError(
+                "cluster_prefix_cache needs the cluster prefix store on the "
+                "object plane, not yet ported (ROADMAP item 16)")
         self.engine = LLMEngine(preset=preset, max_batch=max_batch,
                                 max_seq_len=max_seq_len,
                                 model_overrides=model_overrides,
                                 checkpoint=checkpoint, tokenizer=tokenizer,
                                 **engine_kwargs)
+        self._chain_pool = None
+        self._chain_pool_lock = threading.Lock()
         # distinguishes replicas when a caller aggregates stats() rows
         self.server_id = uuid.uuid4().hex[:12]
+
+    # ------------------------------------------------- cluster prefix tier
+    def _warm_start_future(self, eng: LLMEngine, ids: List[int],
+                           tenant: str = "base"):
+        """The future of a prefix blob fetched from another replica, for
+        `generate(prefix_future=...)`; None without the cluster store."""
+        return None
+
+    def _publish_prefix(self, eng: LLMEngine, ids: List[int]) -> None:
+        """Announce a served prompt's pooled blocks to the cluster store (a
+        no-op without it)."""
+
+    def _request_ids(self, eng: LLMEngine, body: dict,
+                     prompt: str = "") -> List[int]:
+        ids = body.get("prompt_ids")
+        if ids is None:
+            ids = eng.tokenizer.encode(prompt or body.get("prompt", ""))
+        ids = list(ids) or [eng.tokenizer.eos_id]
+        return ids[-(eng.max_seq_len - 2):]
 
     def __call__(self, request: Any) -> dict:
         body = request if isinstance(request, dict) else getattr(
             request, "json", None) or {}
-        eng = self.engine
-        ids = body.get("prompt_ids")
-        if ids is None:
-            ids = eng.tokenizer.encode(body.get("prompt", ""))
-        out = eng.generate(
-            prompt_ids=list(ids) or [eng.tokenizer.eos_id],
+        ids = self._request_ids(self.engine, body)
+        out = self.engine.generate(
+            prompt_ids=ids,
             max_tokens=int(body.get("max_tokens", 16)),
-            temperature=float(body.get("temperature", 0.0)))
+            temperature=float(body.get("temperature", 0.0)),
+            prefix_future=self._warm_start_future(self.engine, ids))
+        self._publish_prefix(self.engine, ids)
         return {
             "object": "text_completion",
             "choices": [{"text": out["text"], "index": 0,
@@ -520,6 +792,34 @@ class LLMServer:
                          "finish_reason": "length"}],
             "usage": {"completion_tokens": len(out["token_ids"])},
         }
+
+    def batch_call(self, requests: list) -> list:
+        """Compiled-chain batch entry: every request is admitted at once
+        (a pool of max(8, max_batch) threads), so the scheduler joins them
+        into shared steps. Answers come back in order; an item that fails
+        gives {CHAIN_ERR: repr(error), "infra": False} and does not fail
+        its neighbours."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from ray_tpu_torch.serve.compiled_chain import CHAIN_ERR
+
+        with self._chain_pool_lock:
+            if self._chain_pool is None:
+                self._chain_pool = ThreadPoolExecutor(
+                    max_workers=max(8, self.engine.max_batch),
+                    thread_name_prefix="chain-batch")
+        futs = [self._chain_pool.submit(self, r) for r in requests]
+        out = []
+        for f in futs:
+            try:
+                out.append(f.result())
+            except Exception as e:   # a user error stays with its item
+                out.append({CHAIN_ERR: repr(e), "infra": False})
+        return out
+
+    def stream_next(self, stream_id: str, cursor: int = 0) -> dict:
+        """Incremental tokens for an SSE stream (proxy-driven pull)."""
+        return self.engine.stream_next(stream_id, cursor=cursor)
 
     def stats(self) -> dict:
         out = self.engine.engine_stats()
@@ -534,3 +834,172 @@ class LLMServer:
 
     def shutdown(self):
         self.engine.shutdown()
+        if self._chain_pool is not None:
+            self._chain_pool.shutdown(wait=True)
+
+
+class OpenAIServer(LLMServer):
+    """OpenAI-compatible API: /v1/models, /v1/completions and
+    /v1/chat/completions (mount with route_prefix="/v1").
+
+    LoRA multiplexing: a request's `model` "<base>:<adapter>" resolves to
+    `{lora_root}/{adapter}.npz`, merged into the base params
+    (`gpt2.apply_lora`) and served by its own engine on the base engine's
+    device, with the base's resolved config and weights_id; at most
+    `max_loras` adapter engines stay loaded, least recently used evicted
+    and shut down first. `stream: true` returns a stream marker that
+    `stream_next` polls."""
+
+    def __init__(self, model_id: str = "ray-tpu-llm",
+                 lora_root: Optional[str] = None, max_loras: int = 2,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.model_id = model_id
+        self.lora_root = lora_root
+        self.max_loras = max_loras
+        self._lora_engines: "OrderedDict[str, LLMEngine]" = OrderedDict()
+        # held while an adapter engine is looked up or built: two requests
+        # for a new adapter build one engine. No engine loop takes it
+        self._lora_lock = threading.Lock()
+        self._engine_kwargs = dict(kwargs)
+        # sid -> (engine, prompt_ids): where stream_next finds the stream
+        self._stream_owner: Dict[str, tuple] = {}
+
+    def loaded_lora_ids(self):
+        return list(self._lora_engines)
+
+    def _tenant_of(self, body: dict) -> str:
+        """Adapter id of the request (`model="<base>:<adapter>"`), or
+        "base"."""
+        model = (body or {}).get("model")
+        if model and ":" in str(model):
+            return str(model).rsplit(":", 1)[1]
+        return "base"
+
+    def _engine_for(self, body: dict) -> LLMEngine:
+        model = (body or {}).get("model")
+        if (not self.lora_root or not model or model == self.model_id
+                or ":" not in str(model)):
+            return self.engine
+        adapter_id = str(model).rsplit(":", 1)[1]
+        evicted = []
+        with self._lora_lock:
+            eng = self._lora_engines.get(adapter_id)
+            if eng is not None:
+                self._lora_engines.move_to_end(adapter_id)
+                return eng
+            eng = self._build_lora_engine(adapter_id)
+            while len(self._lora_engines) >= self.max_loras:
+                evicted.append(self._lora_engines.popitem(last=False)[1])
+            self._lora_engines[adapter_id] = eng
+        for old in evicted:   # on this request's thread, outside the lock
+            old.shutdown()
+        return eng
+
+    def _build_lora_engine(self, adapter_id: str) -> LLMEngine:
+        from ray_tpu_torch.models.gpt2 import apply_lora, load_lora_npz
+        from ray_tpu_torch.utils import fs
+
+        adapter = load_lora_npz(fs.join(self.lora_root, f"{adapter_id}.npz"))
+        merged = apply_lora(self.engine.params, adapter)
+        kwargs = dict(self._engine_kwargs)
+        kwargs.pop("checkpoint", None)
+        kwargs.pop("cluster_prefix_cache", None)
+        # the merged params have the base engine's architecture (maybe a
+        # checkpoint's, not the preset's), and adapters share the base's
+        # prefix-store entries, as in the JAX package
+        kwargs.update(cfg_override=self.engine.cfg,
+                      weights_id=self.engine.weights_id,
+                      device=self.engine.device)
+        return LLMEngine(params_override=merged, **kwargs)
+
+    def stream_next(self, stream_id: str, cursor: int = 0) -> dict:
+        eng, ids = self._stream_owner.get(stream_id, (self.engine, None))
+        try:
+            out = eng.stream_next(stream_id, cursor=cursor)
+        except KeyError:
+            self._stream_owner.pop(stream_id, None)   # expired engine-side
+            raise
+        if out.get("done"):
+            self._stream_owner.pop(stream_id, None)
+            if ids is not None and not out.get("error"):
+                self._publish_prefix(eng, ids)
+        return out
+
+    def _note_stream(self, sid: str, eng, ids=None) -> None:
+        # abandoned SSE clients leave entries behind: bound the map (the
+        # engines sweep their own stream state)
+        if len(self._stream_owner) > 1024:
+            for k in list(self._stream_owner)[:512]:
+                self._stream_owner.pop(k, None)
+        self._stream_owner[sid] = (eng, ids)
+
+    def __call__(self, request: Any) -> dict:
+        path = getattr(request, "path", "/v1/completions")
+        if path.endswith("/models"):
+            data = [{"id": self.model_id, "object": "model",
+                     "owned_by": "ray_tpu"}]
+            data += [{"id": f"{self.model_id}:{a}", "object": "model",
+                      "owned_by": "ray_tpu", "parent": self.model_id}
+                     for a in self.loaded_lora_ids()]
+            return {"object": "list", "data": data}
+        body = request if isinstance(request, dict) else \
+            getattr(request, "json", None) or {}
+        max_tokens = int(body.get("max_tokens", 16))
+        temperature = float(body.get("temperature", 1.0))
+        top_p = float(body.get("top_p", 1.0))
+        top_k = int(body.get("top_k", 0))
+        stream = bool(body.get("stream"))
+        eng = self._engine_for(body)
+        tenant = self._tenant_of(body)
+        chat = path.endswith("/chat/completions")
+        if chat:
+            msgs = body.get("messages", [])
+            prompt = "".join(f"<|{m.get('role', 'user')}|>{m.get('content', '')}"
+                             for m in msgs) + "<|assistant|>"
+            ids = self._request_ids(eng, {}, prompt)
+        else:
+            prompt = body.get("prompt", "")
+            if isinstance(prompt, list):
+                prompt = prompt[0] if prompt else ""
+            ids = self._request_ids(eng, body, prompt)
+        sampling = dict(max_tokens=max_tokens, temperature=temperature,
+                        top_k=top_k, top_p=top_p,
+                        prefix_future=self._warm_start_future(
+                            eng, ids, tenant=tenant))
+        if stream:
+            sid = eng.start_stream(prompt_ids=ids, **sampling)
+            self._note_stream(sid, eng, ids)
+            return {"__sse_stream__": {"stream_id": sid,
+                                       "model": self.model_id,
+                                       "mode": "chat" if chat
+                                       else "completion"}}
+        out = eng.generate(prompt_ids=ids, **sampling)
+        self._publish_prefix(eng, ids)
+        finish = ("length" if out["completion_tokens"] >= max_tokens
+                  else "stop")
+        usage = {"prompt_tokens": out["prompt_tokens"],
+                 "completion_tokens": out["completion_tokens"],
+                 "total_tokens": out["prompt_tokens"]
+                 + out["completion_tokens"]}
+        if chat:
+            return {"id": f"chatcmpl-{int(time.time() * 1e3)}",
+                    "object": "chat.completion", "model": self.model_id,
+                    "choices": [{"index": 0,
+                                 "message": {"role": "assistant",
+                                             "content": out["text"]},
+                                 "finish_reason": finish}],
+                    "usage": usage}
+        return {"id": f"cmpl-{int(time.time() * 1e3)}",
+                "object": "text_completion", "model": self.model_id,
+                "choices": [{"index": 0, "text": out["text"],
+                             "finish_reason": finish}],
+                "usage": usage}
+
+    def shutdown(self):
+        with self._lora_lock:
+            engines = list(self._lora_engines.values())
+            self._lora_engines.clear()
+        for eng in engines:
+            eng.shutdown()
+        super().shutdown()

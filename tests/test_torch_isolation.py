@@ -37,6 +37,9 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.ops._kernels", "ray_tpu_torch.models.gpt2",
                  "ray_tpu_torch.models.llama", "ray_tpu_torch.models.moe",
                  "ray_tpu_torch.serve.llm", "ray_tpu_torch.serve.kv_cache",
-                 "ray_tpu_torch.utils.platform", "ray_tpu_torch.train",
+                 "ray_tpu_torch.serve.prefix_store",
+                 "ray_tpu_torch.serve.compiled_chain",
+                 "ray_tpu_torch.utils.platform", "ray_tpu_torch.utils.fs",
+                 "ray_tpu_torch.train",
                  "ray_tpu_torch.train.spmd", "chip_smoke"):
         assert want in res["imported"]
