@@ -35,6 +35,19 @@ Phases, each reported on its own line:
    remat "dots", flash attention) through compile_gpt2_train: exact kernel
    launches per step, a falling loss on a repeated batch, the first steps
    equal to the dense path's, step time, tokens/s and MFU;
+6b. data parallel on torch.distributed (phase_dp): (a) every op of the
+   collective module API on CUDA tensors through a world-1 NCCL group, and
+   the int8/fp8 quantizer at GPT-2-125M's gradient size bit-equal to the
+   CPU's, timed; (b) GPT-2-125M with phase 6's configuration through
+   compile_gpt2_train on a world-1 hierarchical mesh over NCCL, 5 steps
+   bit-equal to the one-device step, exact launches, nothing through the
+   host, the sync timed; (c) two spawned ranks sharing the card over gloo
+   (NCCL refuses two ranks on one GPU), B=4 a rank, as two hosts (f32,
+   then int8 with error feedback) and as one host of two (f32, the intra
+   reduce-scatter and all-gather): params bit-equal across ranks after
+   every step, losses and grad norms within their bounds of one process
+   at B=8 over 4 steps (int8-EF: grad norms of the two steps before the
+   first update), the sync timed (gloo: says nothing of NCCL);
 7. Llama inference at full width and depth, llama3-8b (seeded random
    weights drawn on the card): the B=1 T=4096 forward through K1 at Dh=128
    (32 launches) against the dense path, then KV-cache decode at B=4: a
@@ -50,7 +63,8 @@ Phases, each reported on its own line:
 Phase 2 also holds the kernels at the Llama paths' shapes (tinyllama's
 training, llama3-8b's forward, K/V expanded from the KV heads) and times
 that expansion. Phases 4-5 (GPT-2 inference), 5b (the OpenAI server), 6
-(GPT-2 training), 7, 8 and 9 are the main paths: every kernel's launch
+(GPT-2 training), 6b's (b) (data-parallel training), 7, 8 and 9 are the
+main paths: every kernel's launch
 count is set to 0 before each and read right after. The line before the
 last lists the kernels as JSON, with the GPT-2 training path's counts under
 "launches" and every path's under "launches_by_path"; the last line is
@@ -83,6 +97,8 @@ import weakref
 from concurrent.futures import Future
 
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 import torch.nn.functional as F
 
 from ray_tpu_torch.models import gpt2, llama, moe
@@ -90,7 +106,12 @@ from ray_tpu_torch.ops import _kernels
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.serve.compiled_chain import CHAIN_ERR
 from ray_tpu_torch.serve.llm import LLMEngine, LLMServer, OpenAIServer
+from ray_tpu_torch.parallel.mesh import build_hierarchical_mesh, hier_groups
 from ray_tpu_torch.train import spmd
+from ray_tpu_torch.util import collective as col
+from ray_tpu_torch.util.collective._comm import HOST_STAGED
+from ray_tpu_torch.util.collective.hierarchy import Topology, hier_grad_sync
+from ray_tpu_torch.util.collective.quantize import QuantizedAllreduce
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over HBM bandwidth and its operations over the
@@ -206,6 +227,40 @@ MOE_LAYERS = 2
 MOE_B = 2
 MOE_T = 2048
 MOE_STEPS = 5
+# phase_dp, data parallel on torch.distributed: (b) GPT-2-125M at world 1 on
+# NCCL in phase 6's configuration for DP_STEPS steps, held bit-equal to the
+# one-device step; (c) two ranks sharing the one card over gloo (NCCL
+# refuses two ranks on one GPU), DP_RANK_B rows a rank for DP_RANK_STEPS
+# steps, f32 and then int8 with error feedback in DP_CHUNK-element blocks.
+DP_BACKEND = "nccl"
+DP_STEPS = 5
+DP_RANK_B = 4
+DP_RANK_STEPS = 4
+DP_CHUNK = 4096
+# (c)'s runs: (label, (inter, intra), int8 with error feedback). Two hosts
+# of one rank each put the sum on the inter hop (quantized in the second
+# run); one host of two ranks puts it on the intra reduce-scatter and
+# all-gather (an inter hop of one member is never quantized).
+DP_RANK_RUNS = (("f32", (2, 1), False), ("int8-ef", (2, 1), True),
+                ("f32 intra", (1, 2), False))
+# (c)'s int8-EF run against one process at the global batch. Steps 0 and 1
+# see the init's params in both runs (the first update has lr 0), so their
+# grad norms, which the optimizer takes from the synced gradients, differ
+# only by what the int8 wire and the residual did to those gradients: half
+# a quantum (a chunk's absmax / 254) an element at most, 1.0e-4 and 1.8e-4
+# of the norm on the H100. A wrong scale or a lost share of a chunk's
+# magnitude moves them by whole percents; the bound is about ten times the
+# readings. The losses cannot see such a fault (Adam's first updates are
+# close to sign(g)) and move for a reason of their own: gradients that
+# round to zero take no Adam step where f32 takes a whole one, so the
+# trajectories part from step 2 on (|dloss| 2.16e-4 at step 2, 4.2e-3 at
+# step 3; at step 4 lr 6e-4 throws both runs off, f32 too). The loss bound
+# holds the run to training as one process does, about five times the step
+# 3 reading. f32 runs: TOL_TRAIN_LOSS and TOL_TRAIN_GRAD_NORM on every step.
+TOL_DP_INT8_GRAD_NORM = 2e-3
+TOL_DP_INT8_LOSS = 2e-2
+# a hung rank fails the phase instead of stalling the script
+DP_SPAWN_S = 300
 
 # (name, B, H, T, Dh, dtype, causal, layout). layout "qkv": q, k, v are
 # views split from one [B, T, 3*H*Dh] tensor and dO is the transposed view
@@ -1188,6 +1243,278 @@ def phase_train(card: str) -> tuple:
     return launches
 
 
+def _dp_cfg(preset):
+    return gpt2.GPT2Config.preset(preset, attn_impl="flash", remat=True,
+                                  remat_policy="dots", ce_chunk=0)
+
+
+def _dp_opt():
+    return spmd.default_optimizer(lr=6e-4, warmup=2, total_steps=1000)
+
+
+def _dp_tokens(cfg, B, T):
+    return torch.randint(0, cfg.vocab_size, (B, T + 1),
+                         generator=torch.Generator().manual_seed(1))
+
+
+def _dp_nccl_ops(tmp: str) -> None:
+    """(a) every op of the module API on CUDA tensors through a world-1
+    NCCL group, each result checked."""
+    if not dist.is_nccl_available():
+        raise AssertionError("this torch has no NCCL")
+    col.init_collective_group(1, 0, "nccl", "smoke",
+                              store=f"file://{tmp}/nccl-api")
+    try:
+        x = torch.arange(1, 9, dtype=torch.float32, device=DEVICE)
+        got = {f"allreduce {op.name}": col.allreduce(x.clone(), op, "smoke")
+               for op in col.ReduceOp}
+        got["broadcast"] = col.broadcast(x.clone(), 0, "smoke")
+        got["allgather"] = col.allgather(None, x, "smoke")[0]
+        got["reducescatter"] = col.reducescatter(x.view(1, 8),
+                                                 group_name="smoke")
+        col.barrier("smoke")
+        got["allreduce_device"] = col.get_group("smoke").allreduce_device(
+            x, average=True)
+        bad = [k for k, t in got.items()
+               if not (t.is_cuda and torch.equal(t, x))]
+    finally:
+        col.destroy_collective_group("smoke")
+    log(f"[dp nccl] world 1: {', '.join(got)} and barrier on CUDA tensors: "
+        f"{'all equal to the input' if not bad else 'WRONG: ' + str(bad)}")
+    if bad:
+        raise AssertionError(f"NCCL world-1 ops wrong: {bad}")
+
+
+def _dp_quantize(card: str) -> None:
+    """(a) the quantizer on the card against the CPU, at GPT-2-125M's
+    gradient size padded to whole chunks, int8 and fp8."""
+    n = gpt2.num_params(_dp_cfg(PRESET))
+    for dtype in ("int8", "float8_e4m3fn"):
+        q = QuantizedAllreduce(dtype=dtype, chunk=DP_CHUNK)
+        x = torch.randn(q.padded_size(n),
+                        generator=torch.Generator().manual_seed(3)) * 1e-3
+        want_q, want_s = q.quantize(x)
+        xd = x.to(DEVICE)
+        got_q, got_s = q.quantize(xd)
+        equal = (torch.equal(got_q.cpu().view(torch.uint8),
+                             want_q.view(torch.uint8))
+                 and torch.equal(got_s.cpu(), want_s))
+        ms = time_ms(lambda: q.quantize(xd), iters=10)
+        log(f"[dp quantize] {dtype} chunk {DP_CHUNK} of {x.numel()} f32 "
+            f"({n} gradients padded): card vs CPU q and scales "
+            f"{'bit-equal' if equal else 'DIFFER'}; {ms:.4f} ms a call on "
+            f"{card}")
+        if not equal:
+            raise AssertionError(f"{dtype} quantize on the card differs "
+                                 f"from the CPU")
+        del x, xd, want_q, got_q
+
+
+def _dp_world1(card: str, tmp: str) -> tuple:
+    """(b) GPT-2-125M through a world-1 hierarchical mesh (NCCL) against the
+    one-device step from the same init and batch: losses and params
+    bit-equal. The data-parallel run is the path whose launches count."""
+    dev_id = {"device_id": torch.device(DEVICE, torch.cuda.current_device())
+              } if DP_BACKEND == "nccl" else {}
+    dist.init_process_group(DP_BACKEND, store=dist.FileStore(
+        os.path.join(tmp, "world1"), 1), rank=0, world_size=1, **dev_id)
+    try:
+        mesh = build_hierarchical_mesh(topology=Topology(1, 1),
+                                       device_type=DEVICE)
+        cfg = _dp_cfg(PRESET)
+        batch = {"tokens": _dp_tokens(cfg, TRAIN_B, SEQ).to(DEVICE)}
+        runs = {}
+        for name, m in (("one device", None), ("dp", mesh)):
+            train = spmd.compile_gpt2_train(cfg, mesh=m, optimizer=_dp_opt(),
+                                            device=DEVICE)
+            state = train.init_fn(torch.Generator().manual_seed(0))
+            if m is not None:
+                _zero_counts()
+                staged = HOST_STAGED["bytes"]
+            losses, secs = [], []
+            for _ in range(DP_STEPS):
+                t0 = time.perf_counter()
+                state, met = train.step_fn(state, batch)
+                losses.append(float(met["loss"]))   # syncs
+                secs.append(time.perf_counter() - t0)
+            runs[name] = (losses, secs, state.params)
+        launches = _flash_counts()
+        staged = HOST_STAGED["bytes"] - staged
+        (l1, s1, p1), (l2, s2, p2) = runs["one device"], runs["dp"]
+        same = l1 == l2 and all(torch.equal(a, b) for a, b in
+                                zip(spmd._leaves(p1), spmd._leaves(p2)))
+        vec = torch.cat([p.reshape(-1) for p in spmd._leaves(p1)])
+        groups = hier_groups(mesh)
+        sync_ms = time_ms(lambda: hier_grad_sync(vec, groups) / 1, iters=10)
+        per_step = (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer)
+        log(f"[dp world 1] {PRESET} B={TRAIN_B} T={SEQ} remat=dots on "
+            f"{DP_BACKEND}, Topology(1, 1), {DP_STEPS} steps: losses "
+            f"{' '.join(f'{v:.6f}' for v in l2)}; one device "
+            f"{' '.join(f'{v:.6f}' for v in l1)}; losses and params "
+            f"{'bit-equal' if same else 'DIFFER'}; K1/K2/K3 launches "
+            f"{launches} (want {per_step} a step); bytes through the host "
+            f"{staged}; step {1e3 * statistics.median(s2[2:]):.2f} ms (one "
+            f"device {1e3 * statistics.median(s1[2:]):.2f} ms, medians of "
+            f"steps 3+); the sync alone (hier_grad_sync of a "
+            f"{vec.numel()}-element f32 bucket: the world-1 allreduce and "
+            f"the divide) {sync_ms:.4f} ms on {card}")
+        if not same:
+            raise AssertionError("world-1 data parallel differs from one "
+                                 "device")
+        if launches != tuple(DP_STEPS * k for k in per_step):
+            raise AssertionError(f"K1/K2/K3 launches {launches} != "
+                                 f"{DP_STEPS} x {per_step}")
+        if DP_BACKEND == "nccl" and staged:
+            raise AssertionError(f"NCCL moved {staged} bytes through the "
+                                 f"host")
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_rank(rank: int, world: int, tmp: str, conf: dict) -> None:
+    """(c) one of two ranks sharing the card over gloo, through the runs of
+    DP_RANK_RUNS; after every step the ranks' params are compared bit for
+    bit (rank 0's broadcast); then the sync alone is timed."""
+    device = conf["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "gloo2"), world), rank=rank, world_size=world)
+    cfg = _dp_cfg(conf["preset"])
+    batch = {"tokens": _dp_tokens(cfg, conf["rank_b"] * world,
+                                  conf["seq"]).to(device)}
+    out = {}
+    for mode, shape, int8 in DP_RANK_RUNS:
+        topo = Topology(*shape)
+        mesh = build_hierarchical_mesh(topology=topo, device_type=device)
+        q = (QuantizedAllreduce(dtype="int8", chunk=conf["chunk"]) if int8
+             else None)
+        train = spmd.compile_gpt2_train(cfg, mesh=mesh, optimizer=_dp_opt(),
+                                        device=device, grad_quantize=q)
+        state = train.init_fn(torch.Generator().manual_seed(0))
+        ef = train.init_ef_fn() if q is not None else None
+        losses, norms, same = [], [], []
+        for _ in range(conf["steps"]):
+            if ef is None:
+                state, met = train.step_fn(state, batch)
+            else:
+                state, met, ef = train.step_fn(state, batch, ef)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+            flat = torch.cat([p.reshape(-1) for p in
+                              spmd._leaves(state.params)]).cpu()
+            ref = flat.clone()
+            dist.broadcast(ref, 0)
+            same.append(torch.equal(flat, ref))
+        # the sync alone on a bucket of this size, through the host
+        n = flat.numel()
+        per_shard = -(-n // topo.intra)
+        if q is not None:
+            per_shard = q.padded_size(per_shard)
+        vec = torch.zeros(per_shard * topo.intra, device=device)
+        vec[:n] = flat.to(device)
+        extra = ({} if q is None else
+                 {"residual": torch.zeros(per_shard, device=device)})
+        groups = hier_groups(mesh)
+        hier_grad_sync(vec, groups, q, **extra)   # warm-up
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            hier_grad_sync(vec, groups, q, **extra)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[mode] = (losses, norms, same,
+                     (time.perf_counter() - t0) / 3 * 1e3)
+        del train, state, ef, flat, ref, vec
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    torch.save(out, os.path.join(tmp, f"dp-rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _dp_two_ranks(card: str, tmp: str) -> None:
+    """(c) two spawned ranks on the card against one process at their
+    global batch from the same init."""
+    world = 2
+    cfg = _dp_cfg(PRESET)
+    train = spmd.compile_gpt2_train(cfg, optimizer=_dp_opt(), device=DEVICE)
+    state = train.init_fn(torch.Generator().manual_seed(0))
+    batch = {"tokens": _dp_tokens(cfg, DP_RANK_B * world, SEQ).to(DEVICE)}
+    ref, ref_norms = [], []
+    for _ in range(DP_RANK_STEPS):
+        state, met = train.step_fn(state, batch)
+        ref.append(float(met["loss"]))
+        ref_norms.append(float(met["grad_norm"]))
+    del train, state
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    conf = dict(device=DEVICE, preset=PRESET, seq=SEQ, rank_b=DP_RANK_B,
+                steps=DP_RANK_STEPS, chunk=DP_CHUNK)
+    ctx = mp.spawn(_dp_rank, args=(world, tmp, conf), nprocs=world,
+                   join=False)
+    deadline = time.monotonic() + DP_SPAWN_S
+    try:
+        while not ctx.join(timeout=5):   # raises if a rank failed
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the two ranks did not finish within "
+                                     f"{DP_SPAWN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    outs = [torch.load(os.path.join(tmp, f"dp-rank{r}.pt")) for r in
+            range(world)]
+    for mode, shape, int8 in DP_RANK_RUNS:
+        tol = TOL_DP_INT8_LOSS if int8 else TOL_TRAIN_LOSS
+        tol_n = TOL_DP_INT8_GRAD_NORM if int8 else TOL_TRAIN_GRAD_NORM
+        losses, norms, same, ms = outs[0][mode]
+        gap = max(abs(a - b) for a, b in zip(losses, ref))
+        # int8: the steps before the first update (lr 0 at step 0)
+        n_cmp = 2 if int8 else len(norms)
+        gap_n = max(abs(a - b) / b for a, b in
+                    zip(norms[:n_cmp], ref_norms[:n_cmp]))
+        same = all(all(o[mode][2]) for o in outs)
+        ok = (same and all(o[mode][0] == losses for o in outs)
+              and gap <= tol and gap_n <= tol_n)
+        log(f"[dp two ranks] {PRESET} T={SEQ} B={DP_RANK_B} a rank, "
+            f"Topology{shape}, gloo sharing one card, {mode}"
+            f"{f' chunk {DP_CHUNK}' if int8 else ''}: losses "
+            f"{' '.join(f'{v:.6f}' for v in losses)}; one process at B="
+            f"{DP_RANK_B * world} {' '.join(f'{v:.6f}' for v in ref)}; max "
+            f"|dloss| {gap:.3g} (tol {tol}); grad norms "
+            f"{' '.join(f'{v:.6f}' for v in norms)}, one process "
+            f"{' '.join(f'{v:.6f}' for v in ref_norms)}, max relative gap "
+            f"{gap_n:.3g} over the first {n_cmp} steps (tol {tol_n}); params bit-equal across ranks "
+            f"after every step: {same}; the sync alone {ms:.1f} ms (gloo: "
+            f"says nothing of NCCL) on {card}")
+        if not ok:
+            raise AssertionError(f"two-rank {mode} run failed its gates")
+
+
+def phase_dp(card: str) -> tuple:
+    """Data parallel on torch.distributed: (a) NCCL at world 1 and the
+    quantizer on the card, (b) the 125M step at world 1 (returns its
+    launches: the path's), (c) two gloo ranks sharing the card."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        t0 = time.perf_counter()
+        _dp_nccl_ops(tmp)
+        _dp_quantize(card)
+        torch.cuda.empty_cache()
+        launches = _dp_world1(card, tmp)
+        torch.cuda.empty_cache()
+        _dp_two_ranks(card, tmp)
+        log(f"[dp] phase {time.perf_counter() - t0:.1f} s")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _logit_gap(a, b) -> tuple:
     """(max |a - b|, mean |a - b|) in f32."""
     d = (a.float() - b.float()).abs()
@@ -1469,6 +1796,10 @@ def main() -> int:
     # the training main path: phase_train zeroes the counts
     launches = phase_train(card)
     paths["gpt2-125m train"] = launches
+    torch.cuda.empty_cache()
+
+    # data parallel on torch.distributed: (b)'s run counts from 0
+    paths["gpt2-125m dp train"] = phase_dp(card)
     torch.cuda.empty_cache()
 
     # the Llama and MoE paths, each from counts at 0

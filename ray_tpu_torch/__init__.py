@@ -17,6 +17,12 @@ Ported so far:
   grouped-query attention, SwiGLU, KV-cache decode; `models.moe`: top-k
   routing with capacity, dense dispatch), trained through
   `train.spmd.compile_model_train`;
+- collectives on torch.distributed (`util.collective`: `nccl` and `gloo`
+  groups met through a torch Store, the in-process `LocalCollectiveGroup`,
+  the two-level `hierarchy` schedule with int8/fp8 error-feedback
+  `quantize`, `WindowedReader`) and data-parallel training, one process a
+  device, on a hierarchical `DeviceMesh` (`parallel.mesh`,
+  `train.spmd.compile_train(mesh=...)`, `cross_worker_grad_sync`);
 - all three flash-attention kernels of the JAX package as hand-written
   sm_90a CUDA kernels behind one `torch.autograd.Function`
   (`ops.flash_attention`; forward `csrc/flash_fwd.cu`, backward dQ and

@@ -1,10 +1,10 @@
-"""Training step on one device (counterpart of `ray_tpu/train/spmd.py`).
+"""Training step (counterpart of `ray_tpu/train/spmd.py`).
 
 The JAX module compiles a mesh-sharded step with `jit` and donates the state
-so XLA updates the weights in place. Here the step runs eagerly on one
-device and updates params and optimizer moments IN PLACE: the `TrainState`
-a step returns holds the same tensors as the one it was given, so a caller
-that wants the old weights copies them first.
+so XLA updates the weights in place. Here the step runs eagerly and updates
+params and optimizer moments IN PLACE: the `TrainState` a step returns holds
+the same tensors as the one it was given, so a caller that wants the old
+weights copies them first.
 
 - `default_optimizer` is optax's ``chain(clip_by_global_norm(clip),
   adamw(warmup_cosine_decay_schedule(...)))`` written out by hand, step for
@@ -13,37 +13,32 @@ that wants the old weights copies them first.
   `CompiledTrain` with `init_fn`, the fused `step_fn` and the split
   `grad_fn` / `apply_fn` of the JAX flat path.
 
-A mesh across devices (data, fsdp, tensor, sequence or pipeline parallel),
-the hierarchical and quantized gradient sync and `phase_timing` need the
-collective slice of the port and raise `NotImplementedError`.
+Data parallel runs one process per device on a hierarchical `DeviceMesh`
+(`parallel.mesh.build_hierarchical_mesh`): each rank takes its rows of the
+global batch, and the fused step sums the gradients with the two-level
+schedule of `util.collective.hierarchy` (reduce-scatter inside a host,
+allreduce of the shard across hosts, optionally int8/fp8 with error
+feedback, all-gather back) before the optimizer runs. Several devices in
+one process and the fsdp, tensor, sequence and pipeline axes are ROADMAP
+item 5.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from ray_tpu_torch.parallel import mesh as mesh_lib
+from ray_tpu_torch.util.collective.hierarchy import (hier_grad_sync,
+                                                     hier_phase_programs)
 from ray_tpu_torch.utils.platform import default_device
-
-Tree = Any  # nested dict of tensors, as the models' params
-
-
-def _leaves(tree: Tree) -> list:
-    """Leaves in sorted-key order (the order JAX flattens a dict)."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
-    return [tree]
-
-
-def _tree_map(fn: Callable, tree: Tree) -> Tree:
-    """fn on every leaf, visited in the order of `_leaves`."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
+from ray_tpu_torch.utils.tree import Tree, leaves as _leaves
+from ray_tpu_torch.utils.tree import tree_map as _tree_map
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
@@ -155,15 +150,31 @@ def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
 
 @dataclasses.dataclass
 class CompiledTrain:
-    """A training program bound to one device."""
+    """A training program bound to one device (one rank's, under data
+    parallel)."""
     device: torch.device
     init_fn: Callable[[torch.Generator], TrainState]   # generator -> state
-    step_fn: Callable[[TrainState, Any], tuple]        # -> (state, metrics)
+    step_fn: Callable[..., tuple]                      # -> (state, metrics)
     # the step split in two, for a caller that averages the gradients
     # between the calls: (state, batch) -> (loss, grads) and
-    # (state, grads) -> state
+    # (state, grads) -> state. Under data parallel grad_fn already returns
+    # the mean loss and averaged (unquantized) gradients of the global batch.
     grad_fn: Callable[[TrainState, Any], tuple]
     apply_fn: Callable[[TrainState, Any], TrainState]
+    # data parallel on a hierarchical mesh (None on one device): the mesh
+    # and the Topology its dp sub-axes express; the sync alone, (state,
+    # batch) -> (mean loss, averaged grads) without the update
+    mesh: Any = None
+    topology: Any = None
+    grad_quantize: Any = None
+    sync_fn: Optional[Callable[[TrainState, Any], tuple]] = None
+    # with grad_quantize.error_feedback the residual is step state:
+    # step_fn(state, batch, ef) -> (state, metrics, ef), seeded by
+    # init_ef_fn() (this rank's [per_shard] zeros)
+    init_ef_fn: Optional[Callable[[], torch.Tensor]] = None
+    # phase_timing=True: (state, batch) -> (state, metrics) with
+    # metrics["phases"] = {compute, rs, ar, ag, apply: seconds}
+    timed_step_fn: Optional[Callable[[TrainState, Any], tuple]] = None
 
 
 def _one_device(mesh, device) -> torch.device:
@@ -171,32 +182,188 @@ def _one_device(mesh, device) -> torch.device:
         devs = list(mesh) if isinstance(mesh, (list, tuple)) else [mesh]
         if len(devs) != 1 or not isinstance(devs[0], (str, torch.device)):
             raise NotImplementedError(
-                "training across devices (a mesh with data, fsdp, tensor, "
-                "sequence or pipeline axes) needs the collective slice of "
-                "the port (torch.distributed); pass mesh=None or one device")
+                "training on several devices in one process, or on a mesh "
+                "with fsdp, tensor, sequence or pipeline axes, needs the "
+                "port's meshes (ROADMAP item 5); data parallel runs one "
+                "process per device on parallel.mesh.build_hierarchical_mesh")
         device = device if device is not None else devs[0]
     return default_device(device)
 
 
+class _PhaseClock:
+    """Seconds between marks: CUDA events on the card, the host clock on
+    the CPU (where every op has finished when it returns)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.names, self.marks = [], []
+        self.mark(None)
+
+    def mark(self, name) -> None:
+        if name is not None:
+            self.names.append(name)
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def seconds(self) -> dict:
+        if self.cuda:
+            torch.cuda.synchronize()
+            dt = [a.elapsed_time(b) / 1e3
+                  for a, b in zip(self.marks, self.marks[1:])]
+        else:
+            dt = [b - a for a, b in zip(self.marks, self.marks[1:])]
+        return dict(zip(self.names, dt))
+
+
+def _rank_rows(batch, rank: int, world: int) -> dict:
+    """Rank `rank`'s rows of every leaf of the global batch: how
+    P((dp_inter, dp_intra)) shards it, block rank of world."""
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(v)
+        if v.shape[0] % world:
+            raise ValueError(
+                f"batch[{k!r}] has {v.shape[0]} rows, which the {world} "
+                f"data-parallel ranks cannot split evenly")
+        per = v.shape[0] // world
+        out[k] = v[rank * per:(rank + 1) * per]
+    return out
+
+
+class _DataParallel:
+    """This rank's share of data parallel on a hierarchical mesh: its rows
+    of the global batch, the flat f32 gradient bucket and its two-level
+    sync (`_fused_hier_sync` of the JAX package, eager)."""
+
+    def __init__(self, mesh, quantize, device: torch.device):
+        self.groups = mesh_lib.hier_groups(mesh)
+        self.topo = self.groups.topo
+        self.world = self.topo.world
+        # P((dp_inter, dp_intra)) gives member (i, j) block i * intra + j
+        self.rank = self.groups.inter_pos * self.topo.intra + \
+            self.groups.intra_pos
+        self.quantize = quantize
+        self.ef = bool(quantize is not None and quantize.error_feedback)
+        self.device = device
+        self.n_grads = None
+
+    def layout(self, tree=None) -> tuple:
+        """(n_grads, per_shard, n_pad), sized from the first tree of params
+        or grads it sees: the bucket is padded so the intra scatter tiles
+        evenly and, quantized, each shard is whole chunks."""
+        if self.n_grads is None:
+            if tree is None:
+                raise RuntimeError("the residual is sized from the params: "
+                                   "call init_fn first")
+            self.n_grads = sum(p.numel() for p in _leaves(tree))
+        per_shard = -(-self.n_grads // self.topo.intra)
+        if self.quantize is not None:
+            per_shard = self.quantize.padded_size(per_shard)
+        return self.n_grads, per_shard, per_shard * self.topo.intra
+
+    def bucket(self, grads) -> torch.Tensor:
+        """grads in `_leaves` order as one f32 vector [n_pad]."""
+        n, _, n_pad = self.layout(grads)
+        parts = [g.reshape(-1).to(torch.float32) for g in _leaves(grads)]
+        if n_pad > n:
+            parts.append(torch.zeros(n_pad - n, dtype=torch.float32,
+                                     device=parts[0].device))
+        return torch.cat(parts)
+
+    @staticmethod
+    def unbucket(vec: torch.Tensor, like) -> Tree:
+        """vec's leading entries cast back to each leaf's dtype and shape."""
+        sizes = [g.numel() for g in _leaves(like)]
+        pieces = iter(vec[:sum(sizes)].split(sizes))
+        return _tree_map(lambda g: next(pieces).view(g.shape).to(g.dtype),
+                         like)
+
+    def mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The mean of every rank's loss: two chained allreduces, intra
+        then inter (never a flat-world group), then / world."""
+        out = loss.detach().to(torch.float32).reshape(1).clone()
+        self.groups.intra.all_reduce(out)
+        self.groups.inter.all_reduce(out)
+        return out[0] / self.world
+
+    def generator(self, step: int) -> Optional[torch.Generator]:
+        """Stochastic rounding's draws, seeded from (step, rank): the
+        counterpart of ``fold_in(PRNGKey(step), rank)``."""
+        if self.quantize is None or not self.quantize.stochastic_rounding:
+            return None
+        return torch.Generator(device=self.device).manual_seed(
+            (int(step) << 32) | self.rank)
+
+    def sync(self, grads, step: int, quantize, residual=None) -> tuple:
+        """(averaged grads, new residual or None)."""
+        vec = self.bucket(grads)
+        gen = self.generator(step) if quantize is not None else None
+        if residual is not None:
+            vec, residual = hier_grad_sync(vec, self.groups, quantize,
+                                           residual=residual, generator=gen)
+        else:
+            vec = hier_grad_sync(vec, self.groups, quantize, generator=gen)
+        return self.unbucket(vec / self.world, grads), residual
+
+
 def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
                   init_params_fn: Callable[..., Tree], mesh=None,
-                  optimizer: Optional[AdamW] = None,
-                  device=None) -> CompiledTrain:
-    """Build init and step functions for any model on one device.
+                  optimizer: Optional[AdamW] = None, device=None,
+                  grad_quantize=None,
+                  phase_timing: bool = False) -> CompiledTrain:
+    """Build init and step functions for any model.
 
     loss_fn(params, batch) -> scalar; init_params_fn(generator, device=...)
     -> params. Batches are dicts of tensors or numpy arrays, moved to the
     device by the step. The step updates params and moments in place (see
     the module docstring).
+
+    With `mesh` a hierarchical `DeviceMesh` (data parallel, one process a
+    rank; every rank calls this and `init_fn` with the same seed), the step
+    takes the GLOBAL batch and uses this rank's rows, and the fused `step_fn`
+    averages the gradients with the two-level sync, optionally quantizing
+    the inter hop (`grad_quantize=QuantizedAllreduce(...)`); with error
+    feedback the residual is step state (`init_ef_fn`). `phase_timing=True`
+    adds `timed_step_fn`, the same schedule with each phase timed.
     """
-    device = _one_device(mesh, device)
     optimizer = optimizer or default_optimizer()
+    hier = mesh_lib.is_hierarchical_mesh(mesh)
+    if not hier and mesh_lib.dp_axis_names(mesh) == ("dp",):
+        raise NotImplementedError(
+            "a flat dp mesh needs the port's meshes (ROADMAP item 5); "
+            "build_hierarchical_mesh(topology=Topology(world, 1)) is the "
+            "flat data-parallel case")
+    if grad_quantize is not None and not hier:
+        raise ValueError(
+            "grad_quantize runs on the inter hop of a hierarchical mesh; "
+            "build one with mesh.build_hierarchical_mesh")
+    if phase_timing and not hier:
+        raise ValueError(
+            "phase_timing splits the two-level gradient sync into timed "
+            "phases; build a hierarchical mesh "
+            "(mesh.build_hierarchical_mesh) to use it")
+    if phase_timing and grad_quantize is not None and \
+            grad_quantize.error_feedback:
+        raise ValueError(
+            "phase_timing does not support error-feedback quantization "
+            "(the residual is fused-step state)")
+    if hier:
+        device = default_device(device if device is not None else (
+            "cpu" if mesh.device_type == "cpu" else None))
+    else:
+        device = _one_device(mesh, device)
 
     def init_fn(generator: torch.Generator) -> TrainState:
         params = init_params_fn(generator, device=device)
+        if dp is not None:
+            dp.layout(params)
         return TrainState(0, params, optimizer.init(params))
 
-    def grad_fn(state: TrainState, batch) -> tuple:
+    def local_grads(state: TrainState, batch) -> tuple:
         batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
         params = _tree_map(lambda p: p.detach().requires_grad_(),
                            state.params)
@@ -214,27 +381,101 @@ def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
     def apply_fn(state: TrainState, grads) -> TrainState:
         return _apply(state, grads)[0]
 
-    def step_fn(state: TrainState, batch) -> tuple:
-        loss, grads = grad_fn(state, batch)
-        state, g_norm = _apply(state, grads)
-        return state, {"loss": loss, "grad_norm": g_norm, "step": state.step}
+    if not hier:
+        dp = None
 
-    return CompiledTrain(device=device, init_fn=init_fn, step_fn=step_fn,
-                         grad_fn=grad_fn, apply_fn=apply_fn)
+        def step_fn(state: TrainState, batch) -> tuple:
+            loss, grads = local_grads(state, batch)
+            state, g_norm = _apply(state, grads)
+            return state, {"loss": loss, "grad_norm": g_norm,
+                           "step": state.step}
+
+        return CompiledTrain(device=device, init_fn=init_fn, step_fn=step_fn,
+                             grad_fn=local_grads, apply_fn=apply_fn)
+
+    dp = _DataParallel(mesh, grad_quantize, device)
+
+    def synced(state, batch, quantize, residual=None) -> tuple:
+        """(mean loss, averaged grads, new residual): the step before the
+        update. The sync finishes before the optimizer touches params."""
+        loss, grads = local_grads(state, _rank_rows(batch, dp.rank, dp.world))
+        grads, residual = dp.sync(grads, state.step, quantize, residual)
+        return dp.mean_loss(loss), grads, residual
+
+    def grad_fn(state: TrainState, batch) -> tuple:
+        return synced(state, batch, None)[:2]
+
+    def sync_fn(state: TrainState, batch) -> tuple:
+        zeros = init_ef_fn() if dp.ef else None
+        return synced(state, batch, grad_quantize, zeros)[:2]
+
+    def init_ef_fn() -> torch.Tensor:
+        return torch.zeros(dp.layout()[1], dtype=torch.float32,
+                           device=device)
+
+    def step_fn(state: TrainState, batch, *ef) -> tuple:
+        if len(ef) != int(dp.ef):
+            raise TypeError("with error feedback the step is step_fn(state, "
+                            "batch, ef) (init_ef_fn() seeds ef); without "
+                            "it, step_fn(state, batch)")
+        loss, grads, residual = synced(state, batch, grad_quantize, *ef)
+        state, g_norm = _apply(state, grads)
+        metrics = {"loss": loss, "grad_norm": g_norm, "step": state.step}
+        return (state, metrics, residual) if dp.ef else (state, metrics)
+
+    def timed_step_fn(state: TrainState, batch) -> tuple:
+        phases = hier_phase_programs(dp.groups, grad_quantize)
+        clock = _PhaseClock(device)
+        loss, grads = local_grads(state, _rank_rows(batch, dp.rank, dp.world))
+        vec = dp.bucket(grads)
+        clock.mark("compute")
+        for name in ("rs", "ar", "ag"):
+            vec = phases[name](vec)
+            clock.mark(name)
+        state, g_norm = _apply(state, dp.unbucket(vec / dp.world, grads))
+        clock.mark("apply")
+        return state, {"loss": float(dp.mean_loss(loss)), "grad_norm": g_norm,
+                       "step": state.step, "phases": clock.seconds()}
+
+    return CompiledTrain(
+        device=device, init_fn=init_fn, step_fn=step_fn, grad_fn=grad_fn,
+        apply_fn=apply_fn, mesh=mesh, topology=dp.topo,
+        grad_quantize=grad_quantize, sync_fn=sync_fn,
+        init_ef_fn=init_ef_fn if dp.ef else None,
+        timed_step_fn=timed_step_fn if phase_timing else None)
+
+
+def cross_worker_grad_sync(grads: Tree, group_name: str, world_size: int,
+                           quantize=None) -> Tree:
+    """Average a gradient tree across the worker gang (elastic DDP): one
+    fused f32 bucket through the gang's hierarchical `allreduce_tree`
+    (`util.collective.DistCollectiveGroup`), its inter hop int8/fp8 with
+    `quantize`. No-op at world size 1. `group_name` should carry the
+    group's generation (e.g. "ddp:g3")."""
+    if world_size <= 1:
+        return grads
+    from ray_tpu_torch.util import collective
+
+    return collective.get_group(group_name).allreduce_tree(
+        grads, average=True, quantize=quantize)
 
 
 def compile_model_train(model_mod, cfg, mesh=None, optimizer=None,
-                        device=None) -> CompiledTrain:
+                        device=None, grad_quantize=None,
+                        phase_timing: bool = False) -> CompiledTrain:
     """compile_train for a model module exposing loss_fn / init_params
     (ray_tpu_torch.models.gpt2)."""
     return compile_train(
         loss_fn=functools.partial(model_mod.loss_fn, cfg=cfg),
         init_params_fn=functools.partial(model_mod.init_params, cfg=cfg),
-        mesh=mesh, optimizer=optimizer, device=device)
+        mesh=mesh, optimizer=optimizer, device=device,
+        grad_quantize=grad_quantize, phase_timing=phase_timing)
 
 
-def compile_gpt2_train(cfg, mesh=None, optimizer=None,
-                       device=None) -> CompiledTrain:
+def compile_gpt2_train(cfg, mesh=None, optimizer=None, device=None,
+                       grad_quantize=None,
+                       phase_timing: bool = False) -> CompiledTrain:
     from ray_tpu_torch.models import gpt2
 
-    return compile_model_train(gpt2, cfg, mesh, optimizer, device)
+    return compile_model_train(gpt2, cfg, mesh, optimizer, device,
+                               grad_quantize, phase_timing)

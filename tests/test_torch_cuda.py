@@ -326,3 +326,158 @@ def test_llama_tiny_on_cuda_matches_cpu(cuda):
     for key, g in grads.items():
         np.testing.assert_allclose(g.cpu().numpy(), want[2][key].numpy(),
                                    atol=1e-5, rtol=1e-4, err_msg=key)
+
+
+# ------------------------------------------------ collectives and data parallel
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "float8_e4m3fn"])
+def test_quantize_on_card_bit_equal_to_cpu(cuda, dtype):
+    # the same f32 bits in: q and scales bit-equal (IEEE division, round
+    # half to even and the fp8 cast on both), and so is the dequantized sum
+    from ray_tpu_torch.util.collective.quantize import (QuantizedAllreduce,
+                                                        _dequantize_sum)
+
+    q = QuantizedAllreduce(dtype=dtype, chunk=256)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        1 << 16).astype(np.float32))
+    x[::97] *= 300.0
+    got_q, got_s = q.quantize(x.to(cuda))
+    want_q, want_s = q.quantize(x)
+    assert torch.equal(got_q.cpu().view(torch.uint8), want_q.view(torch.uint8))
+    assert torch.equal(got_s.cpu(), want_s)
+    stack = lambda t: torch.stack([t, t.flip(0)])
+    assert torch.equal(_dequantize_sum(stack(got_q), stack(got_s)).cpu(),
+                       _dequantize_sum(stack(want_q), stack(want_s)))
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_module_ops(cuda, tmp_path):
+    from ray_tpu_torch.util import collective as col
+
+    col.init_collective_group(1, 0, "nccl", "card", store=str(tmp_path / "s"))
+    try:
+        x = torch.arange(1, 9, dtype=torch.float32, device=cuda)
+        for op in col.ReduceOp:
+            assert torch.equal(col.allreduce(x.clone(), op, "card"), x)
+        assert torch.equal(col.broadcast(x.clone(), 0, "card"), x)
+        assert torch.equal(col.allgather(None, x, "card")[0], x)
+        assert torch.equal(col.reducescatter(x.view(1, 8), group_name="card"),
+                           x)
+        col.barrier("card")
+        out = col.get_group("card").allreduce_device(x, average=True)
+        assert out.is_cuda and torch.equal(out, x)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            col.allreduce(x.cpu(), group_name="card")
+    finally:
+        col.destroy_collective_group("card")
+
+
+@pytest.mark.cuda
+def test_world_one_dp_step_bit_equal_to_one_device(cuda, tmp_path):
+    # gpt2-tiny f32 through a world-1 NCCL mesh: the sync's reduce-scatter
+    # and all-gather are identities and dividing by 1 is exact, so losses
+    # and params equal the one-device step's bit for bit; nothing moves
+    # through the host
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel.mesh import build_hierarchical_mesh
+    from ray_tpu_torch.train import spmd
+    from ray_tpu_torch.util.collective._comm import HOST_STAGED
+    from ray_tpu_torch.util.collective.hierarchy import Topology
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "default"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = build_hierarchical_mesh(topology=Topology(1, 1))
+        cfg = gpt2.GPT2Config.preset("gpt2-tiny", dtype=torch.float32)
+        toks = torch.from_numpy(np.random.default_rng(9).integers(
+            0, 512, (4, 33))).to(cuda)
+        runs = []
+        for m in (None, mesh):
+            opt = spmd.default_optimizer(lr=1e-3, warmup=2, total_steps=20)
+            train = spmd.compile_gpt2_train(cfg, mesh=m, optimizer=opt)
+            state = train.init_fn(torch.Generator().manual_seed(0))
+            staged = HOST_STAGED["bytes"]
+            losses = []
+            for _ in range(3):
+                state, met = train.step_fn(state, {"tokens": toks})
+                losses.append(float(met["loss"]))
+            runs.append((losses, state.params, HOST_STAGED["bytes"] - staged))
+        assert runs[0][0] == runs[1][0]
+        for a, b in zip(spmd._leaves(runs[0][1]), spmd._leaves(runs[1][1])):
+            assert torch.equal(a, b)
+        assert runs[1][2] == 0
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_across_cards(cuda, tmp_path):
+    # two or four ranks, one card each, as two hosts: the quantized ring
+    # (a send and a recv to the one peer each hop, also at 4 MiB a hop)
+    # gives the gather exchange's bits; the fused int8 sync with error feedback gives, on
+    # every rank, what the port's quantizer makes of the same inputs on the
+    # CPU (the intra sums have two terms, so any order gives their bits);
+    # gpt2-tiny data parallel holds every rank's params bit-equal and the
+    # f32 trajectory within atol=1e-5, rtol=1e-4 of one device (the CPU
+    # data-parallel tests' bound); nothing moves through the host
+    import _torch_dist_workers as W
+    from ray_tpu_torch.util.collective.quantize import (QuantizedAllreduce,
+                                                        _dequantize_sum)
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two CUDA cards: NCCL refuses two ranks on one")
+    world = 4 if n_cards >= 4 else 2
+    intra, per = world // 2, 128 // (world // 2)
+    rng = np.random.default_rng(11)
+    v = rng.standard_normal((world, 128)).astype(np.float32)
+    v[:, ::13] *= 40.0
+    r = (rng.standard_normal((world, per)) * 1e-2).astype(np.float32)
+    tokens = rng.integers(0, 512, (2 * world, 33))
+    np.savez(tmp_path / "inputs.npz", v=v, r=r, tokens=tokens)
+    outs = W.run_ranks(W.nccl_cards, world, str(tmp_path), timeout=300)
+
+    q = QuantizedAllreduce(dtype="int8", chunk=16)
+    vt, rt = torch.from_numpy(v), torch.from_numpy(r)
+    host = vt.view(2, intra, 128).sum(1)            # [inter, 128]
+    for rank, o in enumerate(outs):
+        i, j = o["pos"]
+        assert (i, j) == (rank // intra, rank % intra)
+        assert o["grp_topology"] == (2, intra)
+        cols = slice(j * per, (j + 1) * per)
+        # the ring and the exchange take each member's own shard; the fused
+        # sync takes its host's sum
+        for key, src in (("ring", vt), ("gather", vt), ("sync_ef", host)):
+            xs = [src[h if src is host else h * intra + j, cols]
+                  + rt[h * intra + j] for h in range(2)]
+            qs = [q.quantize(x) for x in xs]
+            want = _dequantize_sum(torch.stack([a for a, _ in qs]),
+                                   torch.stack([b for _, b in qs]))
+            got, got_r = o[key]
+            if key == "sync_ef":
+                got = got[cols]
+            assert torch.equal(got, want.reshape(-1)), (rank, key)
+            assert torch.equal(got_r, q._residual(xs[i], *qs[i])), (rank, key)
+        assert torch.equal(o["sync_ef"][0], outs[0]["sync_ef"][0])
+        assert torch.equal(*o["ring_big"])
+        np.testing.assert_allclose(o["sync_f32"].numpy(), v.sum(0),
+                                   rtol=1e-6, atol=1e-5)
+        assert torch.equal(o["dev_f32"], outs[0]["dev_f32"])
+        assert torch.equal(o["dev_int8_ef"], outs[0]["dev_int8_ef"])
+        assert o["staged"] == 0
+    assert torch.equal(outs[1]["p2p"], torch.full((2, 2), 7.0))
+    assert torch.equal(outs[0]["p2p"], torch.full((3,), 14.0))
+    for name in ("f32", "int8-ef"):
+        for o in outs[1:]:
+            assert o[name][0] == outs[0][name][0], name
+            for key, arr in o[name][1].items():
+                assert arr.tobytes() == outs[0][name][1][key].tobytes()
+    (h1, w1), (h2, w2) = outs[0]["one device"], outs[0]["f32"]
+    np.testing.assert_allclose(np.array(h2), np.array(h1), atol=1e-5,
+                               rtol=1e-4)
+    for key, arr in w1.items():
+        np.testing.assert_allclose(w2[key], arr, atol=1e-5, rtol=1e-4)
+    assert np.isfinite(np.array(outs[0]["int8-ef"][0])).all()

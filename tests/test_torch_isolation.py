@@ -40,6 +40,15 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.serve.prefix_store",
                  "ray_tpu_torch.serve.compiled_chain",
                  "ray_tpu_torch.utils.platform", "ray_tpu_torch.utils.fs",
-                 "ray_tpu_torch.train",
-                 "ray_tpu_torch.train.spmd", "chip_smoke"):
+                 "ray_tpu_torch.utils.tree", "ray_tpu_torch.train",
+                 "ray_tpu_torch.train.spmd", "ray_tpu_torch.parallel.mesh",
+                 "ray_tpu_torch.util.collective",
+                 "ray_tpu_torch.util.collective.types",
+                 "ray_tpu_torch.util.collective._comm",
+                 "ray_tpu_torch.util.collective.hierarchy",
+                 "ray_tpu_torch.util.collective.quantize",
+                 "ray_tpu_torch.util.collective.reshard",
+                 "ray_tpu_torch.util.collective.local_group",
+                 "ray_tpu_torch.util.collective.dist_group",
+                 "ray_tpu_torch.util.collective.collective", "chip_smoke"):
         assert want in res["imported"]
