@@ -48,6 +48,21 @@ Phases, each reported on its own line:
    every step, losses and grad norms within their bounds of one process
    at B=8 over 4 steps (int8-EF: grad norms of the two steps before the
    first update), the sync timed (gloo: says nothing of NCCL);
+6c. the named mesh on DTensor (phase_mesh): (a) GPT-2-125M with phase 6's
+   configuration through compile_gpt2_train on a world-1 NCCL build_mesh
+   mesh with every axis at 1, 5 steps bit-equal to the one-device step,
+   exact launches, the step timed against one device's (DTensor's
+   dispatch); (b) gloo on CUDA tensors: each collective DTensor's
+   redistributions use, in its own pair of spawned ranks sharing the card,
+   so a crash names its op; (c) where gloo survives the all-gather every
+   sharded mesh needs, two ranks sharing the card: GPT-2-125M at full
+   width, global B=8 T=1024, on tp=2 (K1-K3 on 6 local heads) and fsdp=2,
+   3 steps each, and mixtral-8x7b's widths cut to one layer on ep=2 (B=2
+   T=2048, 2 steps): losses and grad norms within their bounds of one
+   process at the same global batch, GPT-2's gathered params too, per-rank
+   launches, one step's collectives by kind (CommDebugMode), step ms. Where
+   gloo does not survive it, (c) runs over NCCL on two cards in
+   tests/test_torch_cuda.py::test_mesh_across_cards (`mesh_pair`);
 7. Llama inference at full width and depth, llama3-8b (seeded random
    weights drawn on the card): the B=1 T=4096 forward through K1 at Dh=128
    (32 launches) against the dense path, then KV-cache decode at B=4: a
@@ -63,8 +78,8 @@ Phases, each reported on its own line:
 Phase 2 also holds the kernels at the Llama paths' shapes (tinyllama's
 training, llama3-8b's forward, K/V expanded from the KV heads) and times
 that expansion. Phases 4-5 (GPT-2 inference), 5b (the OpenAI server), 6
-(GPT-2 training), 6b's (b) (data-parallel training), 7, 8 and 9 are the
-main paths: every kernel's launch
+(GPT-2 training), 6b's (b) (data-parallel training), 6c's (a) and (c)
+(sharded training), 7, 8 and 9 are the main paths: every kernel's launch
 count is set to 0 before each and read right after. The line before the
 last lists the kernels as JSON, with the GPT-2 training path's counts under
 "launches" and every path's under "launches_by_path"; the last line is
@@ -106,7 +121,8 @@ from ray_tpu_torch.ops import _kernels
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.serve.compiled_chain import CHAIN_ERR
 from ray_tpu_torch.serve.llm import LLMEngine, LLMServer, OpenAIServer
-from ray_tpu_torch.parallel.mesh import build_hierarchical_mesh, hier_groups
+from ray_tpu_torch.parallel.mesh import (MeshConfig, build_hierarchical_mesh,
+                                         build_mesh, hier_groups)
 from ray_tpu_torch.train import spmd
 from ray_tpu_torch.util import collective as col
 from ray_tpu_torch.util.collective._comm import HOST_STAGED
@@ -261,6 +277,24 @@ TOL_DP_INT8_GRAD_NORM = 2e-3
 TOL_DP_INT8_LOSS = 2e-2
 # a hung rank fails the phase instead of stalling the script
 DP_SPAWN_S = 300
+# phase_mesh (6c): (a) world 1, MESH_STEPS steps at phase 6's
+# configuration; (c) two ranks: GPT-2 at a global batch of MESH_B, the MoE
+# at MOE_B x MOE_T with MESH_MOE_LAYERS layer(s) (so that the two ranks and
+# the one-process reference fit one card: ~1.0 B params a rank, ~16 GB with
+# f32 Adam), each run (label, family, mesh config, steps)
+MESH_STEPS = 5
+MESH_B = 8
+MESH_MOE_LAYERS = 1
+MESH_RUNS = (("tp=2", "gpt2", {"tp": 2}, 3),
+             ("fsdp=2", "gpt2", {"fsdp": 2}, 3),
+             ("ep=2", "moe", {"ep": 2}, 2))
+# (b)'s ops: the collective of each redistribution DTensor makes, and the
+# redistribution that issues it
+GLOO_OPS = {"all_gather": "Shard -> Replicate",
+            "reduce_scatter": "Partial -> Shard",
+            "all_reduce": "Partial -> Replicate",
+            "all_to_all": "Shard(1) -> Shard(0)",
+            "scatter": "distribute_tensor"}
 
 # (name, B, H, T, Dh, dtype, causal, layout). layout "qkv": q, k, v are
 # views split from one [B, T, 3*H*Dh] tensor and dO is the transposed view
@@ -1310,6 +1344,27 @@ def _dp_quantize(card: str) -> None:
         del x, xd, want_q, got_q
 
 
+def _one_vs_mesh(cfg, mesh, batch, steps) -> tuple:
+    """`steps` GPT-2 steps on one device, then on `mesh`, from the same init
+    and batch: ({"one device" | "mesh": (losses, step seconds, params)},
+    the mesh run's K1/K2/K3 launches, counted from 0)."""
+    runs = {}
+    for name, m in (("one device", None), ("mesh", mesh)):
+        train = spmd.compile_gpt2_train(cfg, mesh=m, optimizer=_dp_opt(),
+                                        device=DEVICE)
+        state = train.init_fn(torch.Generator().manual_seed(0))
+        if m is not None:
+            _zero_counts()
+        losses, secs = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, met = train.step_fn(state, batch)
+            losses.append(float(met["loss"]))   # syncs
+            secs.append(time.perf_counter() - t0)
+        runs[name] = (losses, secs, state.params)
+    return runs, _flash_counts()
+
+
 def _dp_world1(card: str, tmp: str) -> tuple:
     """(b) GPT-2-125M through a world-1 hierarchical mesh (NCCL) against the
     one-device step from the same init and batch: losses and params
@@ -1323,24 +1378,10 @@ def _dp_world1(card: str, tmp: str) -> tuple:
                                        device_type=DEVICE)
         cfg = _dp_cfg(PRESET)
         batch = {"tokens": _dp_tokens(cfg, TRAIN_B, SEQ).to(DEVICE)}
-        runs = {}
-        for name, m in (("one device", None), ("dp", mesh)):
-            train = spmd.compile_gpt2_train(cfg, mesh=m, optimizer=_dp_opt(),
-                                            device=DEVICE)
-            state = train.init_fn(torch.Generator().manual_seed(0))
-            if m is not None:
-                _zero_counts()
-                staged = HOST_STAGED["bytes"]
-            losses, secs = [], []
-            for _ in range(DP_STEPS):
-                t0 = time.perf_counter()
-                state, met = train.step_fn(state, batch)
-                losses.append(float(met["loss"]))   # syncs
-                secs.append(time.perf_counter() - t0)
-            runs[name] = (losses, secs, state.params)
-        launches = _flash_counts()
+        staged = HOST_STAGED["bytes"]
+        runs, launches = _one_vs_mesh(cfg, mesh, batch, DP_STEPS)
         staged = HOST_STAGED["bytes"] - staged
-        (l1, s1, p1), (l2, s2, p2) = runs["one device"], runs["dp"]
+        (l1, s1, p1), (l2, s2, p2) = runs["one device"], runs["mesh"]
         same = l1 == l2 and all(torch.equal(a, b) for a, b in
                                 zip(spmd._leaves(p1), spmd._leaves(p2)))
         vec = torch.cat([p.reshape(-1) for p in spmd._leaves(p1)])
@@ -1454,19 +1495,7 @@ def _dp_two_ranks(card: str, tmp: str) -> None:
         torch.cuda.empty_cache()
     conf = dict(device=DEVICE, preset=PRESET, seq=SEQ, rank_b=DP_RANK_B,
                 steps=DP_RANK_STEPS, chunk=DP_CHUNK)
-    ctx = mp.spawn(_dp_rank, args=(world, tmp, conf), nprocs=world,
-                   join=False)
-    deadline = time.monotonic() + DP_SPAWN_S
-    try:
-        while not ctx.join(timeout=5):   # raises if a rank failed
-            if time.monotonic() > deadline:
-                raise AssertionError(f"the two ranks did not finish within "
-                                     f"{DP_SPAWN_S} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join(10)
+    _join(_spawn(_dp_rank, world, (world, tmp, conf), DP_SPAWN_S))
     outs = [torch.load(os.path.join(tmp, f"dp-rank{r}.pt")) for r in
             range(world)]
     for mode, shape, int8 in DP_RANK_RUNS:
@@ -1511,6 +1540,319 @@ def phase_dp(card: str) -> tuple:
         _dp_two_ranks(card, tmp)
         log(f"[dp] phase {time.perf_counter() - t0:.1f} s")
         return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _spawn(fn, world: int, args: tuple, timeout: float):
+    """Start fn(rank, *args) in `world` spawned processes (the ranks'
+    ProcessContext, not joined)."""
+    ctx = mp.spawn(fn, args=args, nprocs=world, join=False)
+    ctx.deadline = time.monotonic() + timeout
+    return ctx
+
+
+def _join(ctx) -> None:
+    """Wait for the ranks; raises with a failing rank's traceback, or when
+    the context's deadline passes (the ranks still running are killed)."""
+    try:
+        while not ctx.join(timeout=5):   # raises if a rank failed
+            if time.monotonic() > ctx.deadline:
+                raise AssertionError("ranks did not finish by the deadline")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+
+
+def _exit_codes(ctx) -> list:
+    """Each process's exit code, once it ended or its context's deadline
+    passed (None: killed at the deadline)."""
+    codes = []
+    for p in ctx.processes:
+        p.join(max(0.0, ctx.deadline - time.monotonic()))
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+            codes.append(None)
+        else:
+            codes.append(p.exitcode)
+    return codes
+
+
+def _mesh_world1(card: str, tmp: str) -> tuple:
+    """(a) GPT-2-125M through a world-1 build_mesh mesh (every axis at 1,
+    params and batch as DTensors) against the one-device step from the same
+    init and batch: losses and params bit-equal. The mesh run is the path
+    whose launches count."""
+    dev_id = {"device_id": torch.device(DEVICE, torch.cuda.current_device())
+              } if DP_BACKEND == "nccl" else {}
+    dist.init_process_group(DP_BACKEND, store=dist.FileStore(
+        os.path.join(tmp, "mesh-world1"), 1), rank=0, world_size=1,
+        **dev_id)
+    try:
+        mesh = build_mesh(MeshConfig(), device_type=DEVICE)
+        cfg = _dp_cfg(PRESET)
+        batch = {"tokens": _dp_tokens(cfg, TRAIN_B, SEQ).to(DEVICE)}
+        runs, launches = _one_vs_mesh(cfg, mesh, batch, MESH_STEPS)
+        (l1, s1, p1), (l2, s2, p2) = runs["one device"], runs["mesh"]
+        same = l1 == l2 and all(
+            torch.equal(a, b) for a, b in
+            zip(spmd._leaves(p1), spmd._leaves(spmd.unshard(p2))))
+        per_step = (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer)
+        log(f"[mesh world 1] {PRESET} B={TRAIN_B} T={SEQ} remat=dots on "
+            f"{DP_BACKEND}, build_mesh(MeshConfig()): axes "
+            f"{mesh.mesh_dim_names} of size {mesh.size()}, {MESH_STEPS} "
+            f"steps: losses {' '.join(f'{v:.6f}' for v in l2)}; one device "
+            f"{' '.join(f'{v:.6f}' for v in l1)}; losses and params "
+            f"{'bit-equal' if same else 'DIFFER'}; K1/K2/K3 launches "
+            f"{launches} (want {per_step} a step); step "
+            f"{1e3 * statistics.median(s2[2:]):.2f} ms against one device's "
+            f"{1e3 * statistics.median(s1[2:]):.2f} ms (medians of steps 3+; "
+            f"the difference is DTensor's dispatch) on {card}")
+        if not same:
+            raise AssertionError("the world-1 mesh differs from one device")
+        if launches != tuple(MESH_STEPS * k for k in per_step):
+            raise AssertionError(f"K1/K2/K3 launches {launches} != "
+                                 f"{MESH_STEPS} x {per_step}")
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def _gloo_op_rank(rank: int, world: int, tmp: str, op: str) -> None:
+    """One of GLOO_OPS on CUDA tensors through a gloo DeviceMesh of the
+    ranks sharing card 0; writes "equal" or "WRONG"."""
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, f"gloo-{op}"), world), rank=rank, world_size=world)
+    mesh = build_mesh({"tp": world}, device_type="cuda")
+    w = torch.arange(32.0, device="cuda").view(4, 8)
+    shard = DTensor.from_local(w.chunk(world, 1)[rank].contiguous(), mesh,
+                               [Shard(1)])
+    part = DTensor.from_local(w, mesh, [Partial()])
+    run, want = {
+        "all_gather": (lambda: shard.redistribute(mesh, [Replicate()]), w),
+        "reduce_scatter": (lambda: part.redistribute(mesh, [Shard(0)]),
+                           (world * w).chunk(world, 0)[rank]),
+        "all_reduce": (lambda: part.redistribute(mesh, [Replicate()]),
+                       world * w),
+        "all_to_all": (lambda: shard.redistribute(mesh, [Shard(0)]),
+                       w.chunk(world, 0)[rank]),
+        "scatter": (lambda: distribute_tensor(w, mesh, [Shard(1)]),
+                    w.chunk(world, 1)[rank]),
+    }[op]
+    got = run().to_local()
+    torch.cuda.synchronize()
+    with open(os.path.join(tmp, f"gloo-{op}-{rank}.txt"), "w") as f:
+        f.write("equal" if got.is_cuda and torch.equal(got, want)
+                else "WRONG")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _gloo_cuda_ops(tmp: str) -> dict:
+    """(b) each of GLOO_OPS in its own pair of ranks sharing the card, all
+    pairs at once: {op: "equal" | "WRONG" | "exit codes [...]"}."""
+    pairs = {op: _spawn(_gloo_op_rank, 2, (2, tmp, op), 120)
+             for op in GLOO_OPS}
+    out = {}
+    for op, ctx in pairs.items():
+        codes = _exit_codes(ctx)
+        if codes != [0, 0]:
+            out[op] = f"exit codes {codes}"
+            continue
+        words = set()
+        for r in range(2):
+            with open(os.path.join(tmp, f"gloo-{op}-{r}.txt")) as f:
+                words.add(f.read())
+        out[op] = "equal" if words == {"equal"} else "WRONG"
+    return out
+
+
+def _mesh_case(fam: str, conf: dict, device) -> tuple:
+    """(model module, config, tokens [B, T+1] on the CPU, the init
+    generator's device) of a MESH_RUNS family: GPT-2 at phase 6's
+    configuration, the MoE at phase 9's with conf["moe_layers"] layers and
+    its weights drawn on the card."""
+    if fam == "gpt2":
+        cfg = _dp_cfg(conf["preset"])
+        return gpt2, cfg, _dp_tokens(cfg, conf["b"], conf["seq"]), "cpu"
+    cfg = moe.MoEConfig.preset(conf["moe_preset"], n_layer=conf["moe_layers"],
+                               attn_impl="flash")
+    tokens = torch.randint(0, cfg.vocab_size, (conf["moe_b"],
+                                               conf["moe_t"] + 1),
+                           generator=torch.Generator().manual_seed(2))
+    return moe, cfg, tokens, device
+
+
+def _flat_params(params) -> dict:
+    return {k: v.detach().float().cpu() for k, v in
+            gpt2._flatten(params).items()}
+
+
+def _mesh_refs(conf: dict, tmp: str) -> dict:
+    """Each run of conf["runs"] in one process at the global batch:
+    {label: [(loss, grad_norm)]}; GPT-2's final params go to
+    ref-<label>.pt for the ranks."""
+    refs = {}
+    for label, fam, _, steps in conf["runs"]:
+        model, cfg, tokens, init_dev = _mesh_case(fam, conf, DEVICE)
+        train = spmd.compile_model_train(model, cfg, optimizer=_dp_opt(),
+                                         device=DEVICE)
+        state = train.init_fn(torch.Generator(device=init_dev).manual_seed(0))
+        batch = {"tokens": tokens.to(DEVICE)}
+        hist = []
+        for _ in range(steps):
+            state, met = train.step_fn(state, batch)
+            hist.append((float(met["loss"]), float(met["grad_norm"])))
+        refs[label] = hist
+        if fam == "gpt2":
+            torch.save(_flat_params(state.params),
+                       os.path.join(tmp, f"ref-{label}.pt"))
+        del train, state
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return refs
+
+
+def _mesh_rank(rank: int, world: int, tmp: str, conf: dict) -> None:
+    """(c) one rank of a build_mesh mesh per run of conf["runs"]: over gloo
+    every rank on card 0, over NCCL rank r on card r. Counts every launch
+    from 0, one step's collectives, the step times, and for GPT-2 the
+    gathered params' relative distance to the one-process run's."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    nccl = conf["backend"] == "nccl"
+    device = torch.device("cpu")
+    if conf["device"] == "cuda":
+        device = torch.device("cuda", rank if nccl else 0)
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(conf["backend"], store=dist.FileStore(
+        os.path.join(tmp, f"mesh-{conf['backend']}"), world), rank=rank,
+        world_size=world, **({"device_id": device} if nccl else {}))
+    out = {}
+    for label, fam, config, steps in conf["runs"]:
+        model, cfg, tokens, init_dev = _mesh_case(fam, conf, device)
+        mesh = build_mesh(config, device_type=device.type)
+        train = spmd.compile_model_train(model, cfg, mesh=mesh,
+                                         optimizer=_dp_opt(), device=device)
+        state = train.init_fn(torch.Generator(device=init_dev).manual_seed(0))
+        batch = {"tokens": tokens.to(device)}
+        _zero_counts()
+        hist, secs, comm = [], [], {}
+        for i in range(steps):
+            t0 = time.perf_counter()
+            if i == 1:
+                with CommDebugMode() as mode:
+                    state, met = train.step_fn(state, batch)
+                comm = {str(k).rsplit(".", 1)[-1]: v
+                        for k, v in mode.get_comm_counts().items()}
+            else:
+                state, met = train.step_fn(state, batch)
+            hist.append((float(met["loss"]), float(met["grad_norm"])))
+            secs.append(time.perf_counter() - t0)
+        gap = None
+        if fam == "gpt2":
+            ref = torch.load(os.path.join(tmp, f"ref-{label}.pt"))
+            got = _flat_params(spmd.unshard(state.params))
+            num = sum(float(((got[k] - ref[k]) ** 2).sum()) for k in ref)
+            den = sum(float((ref[k] ** 2).sum()) for k in ref)
+            gap = math.sqrt(num / den)
+        out[label] = dict(hist=hist, secs=secs, launches=_flash_counts(),
+                          comm=comm, gap=gap)
+        del train, state
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    torch.save(out, os.path.join(tmp, f"mesh-rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_pair(card: str, tmp: str, backend: str) -> dict:
+    """(c) MESH_RUNS on two ranks of `backend` against one process at the
+    same global batch; raises if a gate fails. Returns rank 0's launches
+    by path. tests/test_torch_cuda.py::test_mesh_across_cards runs it over
+    NCCL on two cards."""
+    conf = dict(device=DEVICE, backend=backend, preset=PRESET, seq=SEQ,
+                b=MESH_B, moe_preset=MOE_PRESET, moe_layers=MESH_MOE_LAYERS,
+                moe_b=MOE_B, moe_t=MOE_T, runs=MESH_RUNS)
+    refs = _mesh_refs(conf, tmp)
+    _join(_spawn(_mesh_rank, 2, (2, tmp, conf), DP_SPAWN_S))
+    outs = [torch.load(os.path.join(tmp, f"mesh-rank{r}.pt"))
+            for r in range(2)]
+    paths = {}
+    for label, fam, config, steps in MESH_RUNS:
+        model, cfg, _, _ = _mesh_case(fam, conf, DEVICE)
+        ref, o = refs[label], outs[0][label]
+        losses = [h[0] for h in o["hist"]]
+        gap = max(abs(a[0] - b[0]) for a, b in zip(o["hist"], ref))
+        gap_n = max(abs(a[1] - b[1]) / b[1] for a, b in zip(o["hist"], ref))
+        per_step = (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer)
+        want = tuple(steps * k for k in per_step)
+        B = MESH_B if fam == "gpt2" else MOE_B
+        local = (B // (config.get("dp", 1) * config.get("fsdp", 1)),
+                 cfg.n_head // config.get("tp", 1))
+        ok = (all(x[label]["hist"] == o["hist"] for x in outs)
+              and all(x[label]["launches"] == want for x in outs)
+              and all(math.isfinite(v) for h in o["hist"] for v in h)
+              and gap <= TOL_TRAIN_LOSS and gap_n <= TOL_TRAIN_GRAD_NORM
+              and (o["gap"] is None or o["gap"] <= TOL_TRAIN_GRAD_NORM))
+        name = (PRESET if fam == "gpt2"
+                else f"{MOE_PRESET} {MESH_MOE_LAYERS}-layer")
+        pgap = ("not checked (MoE)" if o["gap"] is None
+                else f"{o['gap']:.3g} (tol {TOL_TRAIN_GRAD_NORM})")
+        log(f"[mesh {label}] {name} B={B} T="
+            f"{SEQ if fam == 'gpt2' else MOE_T} on {backend}, two ranks, "
+            f"{steps} steps: losses {' '.join(f'{v:.6f}' for v in losses)}; "
+            f"one process {' '.join(f'{v:.6f}' for v, _ in ref)}; max "
+            f"|dloss| {gap:.3g} (tol {TOL_TRAIN_LOSS}); grad norms "
+            f"{' '.join(f'{v:.6f}' for _, v in o['hist'])}, one process "
+            f"{' '.join(f'{v:.6f}' for _, v in ref)}, max relative gap "
+            f"{gap_n:.3g} (tol {TOL_TRAIN_GRAD_NORM}); gathered params' "
+            f"relative distance {pgap}; "
+            f"K1/K2/K3 launches by rank {[x[label]['launches'] for x in outs]}"
+            f" (want {want}) on local [B, H] = {list(local)}; step 2's "
+            f"collectives {o['comm']}; step "
+            f"{1e3 * statistics.median(o['secs'][1:]):.2f} ms (median of "
+            f"steps 2+; {backend}) on {card}")
+        if not ok:
+            raise AssertionError(f"the {label} mesh run failed its gates")
+        paths[f"{name} {label} train (a rank)"] = o["launches"]
+        del model, cfg
+    return paths
+
+
+def phase_mesh(card: str) -> dict:
+    """The named mesh on DTensor: (a) the world-1 mesh (its launches are a
+    path's), (b) gloo's collectives on CUDA tensors, (c) two ranks on
+    sharded meshes where gloo survives the all-gather. Returns the launches
+    by path."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        t0 = time.perf_counter()
+        paths = {"gpt2-125m mesh world-1 train": _mesh_world1(card, tmp)}
+        torch.cuda.empty_cache()
+        ops = _gloo_cuda_ops(tmp)
+        log("[mesh gloo] two ranks sharing the card, one pair an op: "
+            + "; ".join(f"{op} ({GLOO_OPS[op]}): {res}"
+                        for op, res in ops.items()))
+        if ops["all_gather"] == "equal":
+            paths.update(mesh_pair(card, tmp, "gloo"))
+        else:
+            log("[mesh gloo] every sharded mesh's step all-gathers (a "
+                "Shard -> Replicate redistribution), which gloo did not "
+                "survive on CUDA tensors here: (c) runs over NCCL on two "
+                "cards in tests/test_torch_cuda.py::test_mesh_across_cards, "
+                "not on this one card")
+        log(f"[mesh] phase {time.perf_counter() - t0:.1f} s")
+        return paths
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1800,6 +2142,10 @@ def main() -> int:
 
     # data parallel on torch.distributed: (b)'s run counts from 0
     paths["gpt2-125m dp train"] = phase_dp(card)
+    torch.cuda.empty_cache()
+
+    # the named mesh on DTensor: (a)'s and (c)'s runs each count from 0
+    paths.update(phase_mesh(card))
     torch.cuda.empty_cache()
 
     # the Llama and MoE paths, each from counts at 0

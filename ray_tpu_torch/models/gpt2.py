@@ -12,6 +12,12 @@ Layouts are the JAX package's, so the two compare like with like:
 Params are f32, compute is `cfg.dtype` (bf16 by default), LayerNorm, softmax
 and the loss are f32. Gradients are autograd's; `jax.checkpoint` around each
 block becomes `torch.utils.checkpoint` (see `hidden_states`).
+
+Sharding is the JAX package's: `param_logical_axes` names each leaf's
+logical axes, `param_specs` resolves them under the active rules, and
+`constrain` marks the activations at the same points as the JAX model. On
+a mesh (`parallel.mesh.use_mesh`, params as DTensors) the same code runs
+sharded; without one `constrain` does nothing.
 """
 
 from __future__ import annotations
@@ -26,11 +32,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint, \
     create_selective_checkpoint_contexts
 
 from ray_tpu_torch.models.lm import cross_entropy, resolve_attn_impl, \
-    split_lm_batch
+    split_lm_batch, token_nll
+from ray_tpu_torch.ops.flash_attention import on_local_shards
+from ray_tpu_torch.parallel.mesh import constrain, logical_to_spec, \
+    with_current_mesh
 from ray_tpu_torch.utils.platform import default_device
 
 Params = Dict[str, Any]  # nested dict of tensors
@@ -95,6 +105,56 @@ def param_shapes(cfg: GPT2Config) -> Dict[str, tuple]:
     out.update({"ln_f/bias": (d,), "ln_f/scale": (d,),
                 "wpe": (cfg.max_seq_len, d), "wte": (cfg.vocab_size, d)})
     return out
+
+
+def _stack_axes(block: Params) -> Params:
+    """Prefix every block leaf's axes with the stacked layer dim's logical
+    axis "layers" (unsharded by default)."""
+    return {k: _stack_axes(v) if isinstance(v, dict) else ("layers",) + v
+            for k, v in block.items()}
+
+
+def _specs(axes: Params, rules) -> Params:
+    """A logical-axes tree resolved to PartitionSpecs under `rules` (the
+    active ones when None)."""
+    return {k: _specs(v, rules) if isinstance(v, dict)
+            else logical_to_spec(*v, rules=rules) for k, v in axes.items()}
+
+
+def param_logical_axes(cfg: GPT2Config) -> Params:
+    """Logical axis names per param leaf (same tree structure as
+    init_params). `embed` is the ZeRO/fsdp-sharded hidden axis, `mlp`- and
+    `heads`-shaped output dims shard over tp, `vocab` over tp (tied
+    embedding: the logits matmul is tp-sharded)."""
+    del cfg
+    block = {
+        "ln1": {"scale": ("embed",), "bias": ("embed",)},
+        "attn": {
+            "wqkv": ("embed", "heads"),   # 3*d_model output dim, col-parallel
+            "bqkv": ("heads",),
+            "wo": ("heads", "embed"),     # row-parallel back to hidden
+            "bo": ("embed",),
+        },
+        "ln2": {"scale": ("embed",), "bias": ("embed",)},
+        "mlp": {
+            "wi": ("embed", "mlp"),
+            "bi": ("mlp",),
+            "wo": ("mlp", "embed"),
+            "bo": ("embed",),
+        },
+    }
+    return {
+        "wte": ("vocab", "embed"),
+        "wpe": (None, "embed"),
+        "blocks": _stack_axes(block),
+        "ln_f": {"scale": ("embed",), "bias": ("embed",)},
+    }
+
+
+def param_specs(cfg: GPT2Config, rules=None) -> Params:
+    """PartitionSpec tree for the params under the active (or given)
+    rules."""
+    return _specs(param_logical_axes(cfg), rules)
 
 
 def _nest(flat: Dict[str, Any]) -> Params:
@@ -216,10 +276,22 @@ def dense_attention(q, k, v, dtype):
     return probs @ v
 
 
+def _dense(q, k, v, dtype, attn=None):
+    """`attn` (this module's `dense_attention` by default) on plain tensors,
+    or on each rank's local shard of DTensors: DTensor runs the products'
+    forward but not the backward of the reshapes inside a 4-D matmul, and
+    attention needs no collective."""
+    attn = functools.partial(attn or dense_attention, dtype=dtype)
+    if isinstance(q, DTensor):
+        return on_local_shards(attn, q, k, v)
+    return attn(q, k, v)
+
+
 def _attention(x, p, cfg: GPT2Config):
     B, T, D = x.shape
     H, Dh = cfg.n_head, cfg.head_dim
-    q, k, v = (t.reshape(B, T, H, Dh).transpose(1, 2)
+    q, k, v = (constrain(t.reshape(B, T, H, Dh).transpose(1, 2),
+                         "batch", "heads", "seq", None)
                for t in _qkv(x, p, cfg))
     impl = resolve_attn_impl(cfg.attn_impl, T, x.device)
     if impl == "flash":
@@ -227,7 +299,7 @@ def _attention(x, p, cfg: GPT2Config):
 
         out = flash_attention(q, k, v, True)
     elif impl == "dense":
-        out = dense_attention(q, k, v, cfg.dtype)
+        out = _dense(q, k, v, cfg.dtype)
     else:
         raise ValueError(f"unknown attn_impl {impl!r}")
     out = out.transpose(1, 2).reshape(B, T, D)
@@ -236,25 +308,35 @@ def _attention(x, p, cfg: GPT2Config):
 
 def _mlp(x, p, cfg: GPT2Config):
     h = x @ p["wi"].to(cfg.dtype) + p["bi"].to(cfg.dtype)
+    h = constrain(h, "batch", "seq", "mlp")
     h = F.gelu(h, approximate="tanh")
     return h @ p["wo"].to(cfg.dtype) + p["bo"].to(cfg.dtype)
 
 
 def _block(x, bp, cfg: GPT2Config):
     x = x + _attention(_layer_norm(x, bp["ln1"]), bp["attn"], cfg)
-    return x + _mlp(_layer_norm(x, bp["ln2"]), bp["mlp"], cfg)
+    x = constrain(x, "batch", "seq", "embed")
+    x = x + _mlp(_layer_norm(x, bp["ln2"]), bp["mlp"], cfg)
+    return constrain(x, "batch", "seq", "embed")
 
 
 def embed(params: Params, tokens: torch.Tensor, cfg: GPT2Config):
-    """tokens [B,T] int -> embeddings [B,T,D] (compute dtype)."""
+    """tokens [B,T] int -> embeddings [B,T,D] (compute dtype). On a mesh the
+    table is gathered whole before the lookup, as in the JAX model (its
+    ZeRO-3 prefetch). The lookup is `F.embedding`, whose backward DTensor
+    places in every torch the port runs on (indexing's index_put is not
+    placed by torch 2.11's)."""
     T = tokens.shape[1]
-    return (params["wte"][tokens] + params["wpe"][:T][None]).to(cfg.dtype)
+    wte = constrain(params["wte"], None, None)
+    x = F.embedding(tokens, wte) + params["wpe"][:T].unsqueeze(0)
+    return constrain(x.to(cfg.dtype), "batch", "seq", "embed")
 
 
 def unembed(params: Params, x: torch.Tensor, cfg: GPT2Config):
     """final hidden [B,T,D] -> logits [B,T,vocab] (tied embeddings)."""
     x = _layer_norm(x, params["ln_f"])
-    return x @ params["wte"].T.to(cfg.dtype)
+    return constrain(x @ params["wte"].T.to(cfg.dtype), "batch", "seq",
+                     "vocab")
 
 
 # aten products whose outputs a selective remat policy keeps: the x @ W
@@ -273,6 +355,7 @@ def _remat(fn, policy: Optional[str]):
     selective policy and run again in the recompute."""
     if policy is None or not torch.is_grad_enabled():
         return fn
+    fn = with_current_mesh(fn)    # the recompute may run on another thread
     if policy == "full":
         return functools.partial(checkpoint, fn, use_reentrant=False)
     if policy not in _REMAT_SAVED:
@@ -302,9 +385,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: GPT2Config):
 
 
 def _ce_chunk_sum(x, targets, w):
-    logits = (x @ w).float()
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+    logits = constrain(x @ w, "batch", "seq", "vocab")
+    return torch.sum(token_nll(logits, targets))
 
 
 def chunked_ce(params: Params, x: torch.Tensor, targets: torch.Tensor,

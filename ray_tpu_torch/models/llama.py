@@ -15,7 +15,9 @@ Grouped-query attention gives query head ``h`` the K/V head ``h // q_per_kv``
 expanded to every query head before attention, a copy, so that the flash
 kernels (K1-K3 of `ops.flash_attention`) take them as ``[B, H, T, Dh]``
 unchanged; autograd sums dK and dV over each group, as the transpose of
-JAX's broadcast does.
+JAX's broadcast does. On a mesh the KV heads stay replicated over tp
+(the rule for "kv"), so each rank expands them and keeps its query heads'
+share (`constrain`, as in `models.gpt2`).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 from ray_tpu_torch.models import gpt2 as _gpt2
 from ray_tpu_torch.models.lm import cross_entropy, resolve_attn_impl, \
     split_lm_batch
+from ray_tpu_torch.parallel.mesh import constrain
 from ray_tpu_torch.utils.platform import default_device
 
 Params = Dict[str, Any]  # nested dict of tensors
@@ -156,6 +159,45 @@ def params_from_numpy(flat: Dict[str, np.ndarray],
 params_to_numpy = _gpt2.params_to_numpy
 
 
+def _attn_axes() -> Params:
+    """The attention and norm leaves' logical axes (Llama and MoE share
+    them)."""
+    return {
+        "attn_norm": {"scale": ("embed",)},
+        "attn": {
+            "wq": ("embed", "heads"),
+            "wk": ("embed", "kv"),
+            "wv": ("embed", "kv"),
+            "wo": ("heads", "embed"),
+        },
+        "mlp_norm": {"scale": ("embed",)},
+    }
+
+
+def _model_axes(cfg, block: Params) -> Params:
+    axes = {
+        "wte": ("vocab", "embed"),
+        "blocks": _gpt2._stack_axes(block),
+        "final_norm": {"scale": ("embed",)},
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def param_logical_axes(cfg: LlamaConfig) -> Params:
+    """Logical axis names per param leaf (the JAX model's)."""
+    return _model_axes(cfg, {**_attn_axes(), "mlp": {
+        "wg": ("embed", "mlp"),
+        "wu": ("embed", "mlp"),
+        "wd": ("mlp", "embed"),
+    }})
+
+
+def param_specs(cfg: LlamaConfig, rules=None) -> Params:
+    return _gpt2._specs(param_logical_axes(cfg), rules)
+
+
 # ---------------------------------------------------------------------------
 # Building blocks (reused by ray_tpu_torch.models.moe)
 # ---------------------------------------------------------------------------
@@ -190,7 +232,7 @@ def expand_kv(t: torch.Tensor, q_per_kv: int) -> torch.Tensor:
     if q_per_kv == 1:
         return t
     B, T, KV, Dh = t.shape
-    return t[:, :, :, None].expand(B, T, KV, q_per_kv, Dh).reshape(
+    return t.unsqueeze(3).expand(B, T, KV, q_per_kv, Dh).reshape(
         B, T, KV * q_per_kv, Dh)
 
 
@@ -221,14 +263,15 @@ def attention(x, p, cfg):
     k = apply_rope(k, cos, sin)
     k, v = expand_kv(k, cfg.q_per_kv), expand_kv(v, cfg.q_per_kv)
 
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))      # [B, H, T, Dh]
+    q, k, v = (constrain(t.transpose(1, 2), "batch", "heads", "seq", None)
+               for t in (q, k, v))                        # [B, H, T, Dh]
     impl = resolve_attn_impl(cfg.attn_impl, T, x.device)
     if impl == "flash":
         from ray_tpu_torch.ops.flash_attention import flash_attention
 
         out = flash_attention(q, k, v, True)
     elif impl == "dense":
-        out = dense_attention(q, k, v, cfg.dtype)
+        out = _gpt2._dense(q, k, v, cfg.dtype, dense_attention)
     else:
         raise ValueError(f"unknown attn_impl {impl!r}")
     out = out.transpose(1, 2).reshape(B, T, D)
@@ -238,14 +281,17 @@ def attention(x, p, cfg):
 def swiglu(x, p, cfg):
     g = x @ p["wg"].to(cfg.dtype)
     u = x @ p["wu"].to(cfg.dtype)
-    return (F.silu(g) * u) @ p["wd"].to(cfg.dtype)
+    h = constrain(F.silu(g) * u, "batch", "seq", "mlp")
+    return h @ p["wd"].to(cfg.dtype)
 
 
 def _block(x, bp, cfg: LlamaConfig):
     x = x + attention(rms_norm(x, bp["attn_norm"], cfg.norm_eps), bp["attn"],
                       cfg)
-    return x + swiglu(rms_norm(x, bp["mlp_norm"], cfg.norm_eps), bp["mlp"],
-                      cfg)
+    x = constrain(x, "batch", "seq", "embed")
+    x = x + swiglu(rms_norm(x, bp["mlp_norm"], cfg.norm_eps), bp["mlp"],
+                   cfg)
+    return constrain(x, "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -253,15 +299,20 @@ def _block(x, bp, cfg: LlamaConfig):
 # ---------------------------------------------------------------------------
 
 def embed(params: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """tokens [B,T] int -> embeddings [B,T,D] (compute dtype)."""
-    return params["wte"][tokens].to(cfg.dtype)
+    """tokens [B,T] int -> embeddings [B,T,D] (compute dtype). On a mesh the
+    table is gathered whole first, as `gpt2.embed` does (the JAX model
+    leaves the lookup to GSPMD); DTensor's masked lookup of a vocab shard
+    fails on batch-sharded tokens."""
+    wte = constrain(params["wte"], None, None)
+    return constrain(F.embedding(tokens, wte).to(cfg.dtype), "batch", "seq",
+                     "embed")
 
 
 def unembed(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     """final hidden [B,T,D] -> logits [B,T,vocab] (compute dtype)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["wte"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.to(cfg.dtype)
+    return constrain(x @ head.to(cfg.dtype), "batch", "seq", "vocab")
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from ray_tpu_torch.parallel.mesh import constrain
+
 
 def split_lm_batch(batch: dict):
     """{"tokens": [B,T+1]} or {"inputs","targets"} -> (inputs, targets)."""
@@ -12,12 +14,20 @@ def split_lm_batch(batch: dict):
     return batch["inputs"], batch["targets"]
 
 
+def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[target] per token, in f32. On a mesh the vocab
+    dim of the logits is gathered whole first: DTensor's logsumexp of a
+    vocab shard gathers it anyway, and its masked gather of the gold logit
+    from a shard fails when checkpointing recomputes it."""
+    logits = constrain(logits, "batch", "seq", None).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long().unsqueeze(-1))
+    return logz - gold.squeeze(-1)
+
+
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross-entropy; logits upcast to f32 for the softmax."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    return torch.mean(logz - gold)
+    return torch.mean(token_nll(logits, targets))
 
 
 def resolve_attn_impl(attn_impl: str, seq_len: int,

@@ -6,9 +6,14 @@ Attention and RMSNorm are the port's Llama ones (`models.llama`), as the JAX
 module reuses its `llama`. Experts are stacked ``[n_experts, ...]``; the
 experts' SwiGLU is one batched product over the expert axis where JAX
 `vmap`s one expert's. Everything has static shapes: a token past its
-expert's capacity is dropped (the residual stream carries it). Expert
-parallelism over a mesh's `ep` axis needs the collective slice of the port;
-on one device the dispatch is three einsums.
+expert's capacity is dropped (the residual stream carries it).
+
+On a mesh the experts stack on the logical axis "expert" (ep). Under the
+default rules the batch is not on ep, so every rank routes the same tokens,
+`constrain` keeps its experts' slice of the dispatched inputs, and the
+combine contracts the sharded expert axis into a partial sum that the
+constraint on its output reduces: what the JAX model's rules give, with no
+all-to-all.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch.nn.functional as F
 from ray_tpu_torch.models import gpt2 as _gpt2
 from ray_tpu_torch.models import llama as _llama
 from ray_tpu_torch.models.lm import cross_entropy, split_lm_batch
+from ray_tpu_torch.parallel.mesh import constrain
 
 Params = Dict[str, Any]  # nested dict of tensors
 
@@ -105,6 +111,20 @@ def params_from_numpy(flat: Dict[str, np.ndarray],
 params_to_numpy = _gpt2.params_to_numpy
 
 
+def param_logical_axes(cfg: MoEConfig) -> Params:
+    """Logical axis names per param leaf (the JAX model's)."""
+    return _llama._model_axes(cfg, {**_llama._attn_axes(), "moe": {
+        "router": ("embed", None),       # tiny; replicated
+        "wg": ("expert", "embed", "mlp"),
+        "wu": ("expert", "embed", "mlp"),
+        "wd": ("expert", "mlp", "embed"),
+    }})
+
+
+def param_specs(cfg: MoEConfig, rules=None) -> Params:
+    return _gpt2._specs(param_logical_axes(cfg), rules)
+
+
 # ---------------------------------------------------------------------------
 # Sparse MoE layer (dense dispatch/combine einsum formulation)
 # ---------------------------------------------------------------------------
@@ -128,7 +148,7 @@ def route(x, p, cfg: MoEConfig):
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     """f32 one-hot; an index outside [0, n) gives a zero row, as in
     jax.nn.one_hot."""
-    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+    return (idx.unsqueeze(-1) == torch.arange(n, device=idx.device)).float()
 
 
 def moe_layer(x, p, cfg: MoEConfig):
@@ -157,12 +177,19 @@ def moe_layer(x, p, cfg: MoEConfig):
     # expert inputs [E, B, C, D], then every expert's SwiGLU as one batched
     # product over the expert axis
     expert_in = torch.einsum("btec,btd->ebcd", dispatch.to(cfg.dtype), x)
+    expert_in = constrain(expert_in, "expert", "batch", None, "embed")
     h = expert_in.reshape(E, B * C, D)
     g = torch.bmm(h, p["wg"].to(cfg.dtype))
     u = torch.bmm(h, p["wu"].to(cfg.dtype))
     expert_out = torch.bmm(F.silu(g) * u, p["wd"].to(cfg.dtype))
-    expert_out = expert_out.reshape(E, B, C, D)
-    out = torch.einsum("btec,ebcd->btd", combine.to(cfg.dtype), expert_out)
+    expert_out = constrain(expert_out.reshape(E, B, C, D), "expert", "batch",
+                           None, "embed")
+    # the combine "btec,ebcd->btd" as one product per expert and a sum over
+    # the expert axis, in f32: DTensor (torch 2.11) cannot flatten the
+    # ep-sharded expert axis into the contraction the einsum makes
+    out = torch.matmul(combine.to(cfg.dtype).permute(2, 0, 1, 3), expert_out)
+    out = out.sum(0, dtype=torch.float32).to(cfg.dtype)
+    out = constrain(out, "batch", "seq", "embed")
 
     # Switch load-balance loss E * sum_e f_e * p_e (f: fraction of tokens
     # routed, p: mean router probability), z-loss on the router logits
@@ -178,9 +205,10 @@ def moe_layer(x, p, cfg: MoEConfig):
 def _block(x, bp, cfg: MoEConfig):
     x = x + _llama.attention(
         _llama.rms_norm(x, bp["attn_norm"], cfg.norm_eps), bp["attn"], cfg)
+    x = constrain(x, "batch", "seq", "embed")
     moe_out, aux = moe_layer(
         _llama.rms_norm(x, bp["mlp_norm"], cfg.norm_eps), bp["moe"], cfg)
-    return x + moe_out, aux
+    return constrain(x + moe_out, "batch", "seq", "embed"), aux
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,10 @@ tensor cores (mma.sync, f32 accumulators); in f32, on f32 FMAs.
   reads, so the backward is two launches and no extra pass over dO and O.
 - `flash_attention.launches`, `flash_attention_bwd_dq.launches` and
   `flash_attention_bwd_dkv.launches` count the launches of K1, K2 and K3.
+- On DTensors sharded over batch and heads (a mesh's dp/fsdp and tp), the
+  autograd Function runs through `local_map` on each rank's local
+  ``[B/(dp*fsdp), H/tp, T, Dh]`` shard: K1 writes that shard's O and lse,
+  K2 and K3 its dQ, dK, dV, with no gather of heads.
 """
 
 from __future__ import annotations
@@ -385,11 +389,62 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward hands on a contiguous gradient. A DTensor
+    made from a local gradient with permuted strides (a product's backward
+    can return one) carries global strides its local tensor does not have,
+    and a later reshape of it then fails as a view."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def on_local_shards(fn, q, k, v):
+    """fn(q, k, v) -> out on each rank's local shard of DTensor q, k, v
+    ``[B, H, T, Dh]``, which must share one placement that splits batch
+    (dim 0) and heads (dim 1) only: attention is independent per (batch
+    row, head). Returns out as a DTensor with that placement."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    placements = tuple(q.placements)
+    bad = [p for p in placements
+           if not (isinstance(p, Replicate)
+                   or (isinstance(p, Shard) and p.dim % 4 in (0, 1)))]
+    if bad:
+        raise ValueError(
+            f"sharded flash attention splits batch and heads only, got "
+            f"{placements}; a sequence shard (sp) needs ring attention "
+            f"(ROADMAP item 10)")
+    if any(tuple(t.placements) != placements for t in (k, v)):
+        raise ValueError(f"q, k, v placements differ: {placements}, "
+                         f"{k.placements}, {v.placements}")
+    def local(q, k, v):
+        return fn(*(_ContiguousGrad.apply(t) for t in (q, k, v)))
+
+    # placements as lists: local_map reads a tuple as one entry an output
+    return local_map(local, out_placements=list(placements),
+                     in_placements=(list(placements),) * 3,
+                     device_mesh=q.device_mesh)(q, k, v)
+
+
 def flash_attention(q, k, v, causal: bool = True,
                     scale: Optional[float] = None,
                     block_q: int = DEFAULT_BLOCK_Q,
                     block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
-    """Fused attention with gradients. q,k,v: [B, H, T, Dh] -> [B, H, T, Dh]."""
+    """Fused attention with gradients. q,k,v: [B, H, T, Dh] -> [B, H, T, Dh]
+    (plain tensors, or DTensors sharded over batch and heads)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        return on_local_shards(
+            lambda q, k, v: FlashAttention.apply(q, k, v, causal, scale,
+                                                 block_q, block_k), q, k, v)
     return FlashAttention.apply(q, k, v, causal, scale, block_q, block_k)
 
 

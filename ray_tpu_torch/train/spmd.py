@@ -13,14 +13,19 @@ weights copies them first.
   `CompiledTrain` with `init_fn`, the fused `step_fn` and the split
   `grad_fn` / `apply_fn` of the JAX flat path.
 
-Data parallel runs one process per device on a hierarchical `DeviceMesh`
-(`parallel.mesh.build_hierarchical_mesh`): each rank takes its rows of the
-global batch, and the fused step sums the gradients with the two-level
-schedule of `util.collective.hierarchy` (reduce-scatter inside a host,
-allreduce of the shard across hosts, optionally int8/fp8 with error
-feedback, all-gather back) before the optimizer runs. Several devices in
-one process and the fsdp, tensor, sequence and pipeline axes are ROADMAP
-item 5.
+Several devices run one process a device, in one of two ways:
+- on a `parallel.mesh.build_mesh` mesh (dp, fsdp, tp, ep), the JAX
+  package's flat path: params and Adam moments are `DTensor`s placed by the
+  model's `param_specs` (`state_shardings`), the batch by `batch_sharding`,
+  and DTensor's sharding propagation inserts the collectives GSPMD inserts
+  there, the gradient reduction included;
+- on a hierarchical `DeviceMesh` (`parallel.mesh.build_hierarchical_mesh`),
+  data parallel with the fused sync: each rank takes its rows of the global
+  batch, and the step sums the gradients with the two-level schedule of
+  `util.collective.hierarchy` (reduce-scatter inside a host, allreduce of
+  the shard across hosts, optionally int8/fp8 with error feedback,
+  all-gather back) before the optimizer runs.
+Sequence and pipeline axes (sp, pp) are ROADMAP items 10 and 11.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from ray_tpu_torch.parallel import mesh as mesh_lib
 from ray_tpu_torch.util.collective.hierarchy import (hier_grad_sync,
@@ -42,7 +48,9 @@ from ray_tpu_torch.utils.tree import tree_map as _tree_map
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf (optax.global_norm)."""
+    """sqrt of the sum of squares of every leaf (optax.global_norm). On
+    DTensor leaves each sum is this rank's share (a partial sum) until the
+    square root, which reduces it."""
     return torch.sqrt(sum(torch.sum(g * g) for g in _leaves(tree)))
 
 
@@ -51,6 +59,67 @@ class TrainState:
     step: int
     params: Tree
     opt_state: Any
+
+
+def _structure(tree: Tree):
+    return ({k: _structure(v) for k, v in tree.items()}
+            if isinstance(tree, dict) else None)
+
+
+def state_shardings(state: TrainState, params_spec: Tree, mesh
+                    ) -> TrainState:
+    """Shard params by spec; shard the opt-state subtrees that mirror the
+    param tree (the Adam moments, matched by tree structure, not leaf
+    shape: two same-shaped params may have different specs); replicate
+    everything else. Returns a TrainState of `mesh_lib.Sharding`s."""
+    from torch.distributed.tensor import Replicate
+
+    rep = mesh_lib.Sharding(mesh, (Replicate(),) * mesh.ndim)
+    specs = iter(_leaves(params_spec))
+    param_shardings = _tree_map(lambda _: mesh_lib.Sharding(
+        mesh, mesh_lib.spec_to_placements(mesh, next(specs))), state.params)
+    structure = _structure(state.params)
+
+    def assign(node):
+        if isinstance(node, dict):
+            if _structure(node) == structure:
+                return param_shardings
+            return {k: assign(v) for k, v in node.items()}
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return dataclasses.replace(node, **{
+                f.name: assign(getattr(node, f.name))
+                for f in dataclasses.fields(node)})
+        if isinstance(node, (tuple, list)):
+            return type(node)(assign(c) for c in node)
+        return rep
+
+    return TrainState(step=rep, params=param_shardings,
+                      opt_state=assign(state.opt_state))
+
+
+def shard_params(params: Tree, mesh, specs: Tree) -> Tree:
+    """Full params (the same on every rank) -> DTensors placed by `specs`
+    (a tree of `PartitionSpec`s matching params). `distribute_tensor`
+    scatters rank 0's values."""
+    from torch.distributed.tensor import distribute_tensor
+
+    spec_leaves = _leaves(specs)
+    if len(spec_leaves) != len(_leaves(params)):
+        raise ValueError(f"{len(spec_leaves)} specs for "
+                         f"{len(_leaves(params))} param leaves")
+    it = iter(spec_leaves)
+    return _tree_map(lambda p: distribute_tensor(
+        p, mesh, mesh_lib.spec_to_placements(mesh, next(it))), params)
+
+
+def unshard(tree: Tree) -> Tree:
+    """The inverse of `shard_params`: every DTensor leaf gathered to its full
+    tensor (a collective: every rank of the mesh calls it); other leaves as
+    they are."""
+    from torch.distributed.tensor import DTensor
+
+    return _tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                     else t, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -150,8 +219,7 @@ def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
 
 @dataclasses.dataclass
 class CompiledTrain:
-    """A training program bound to one device (one rank's, under data
-    parallel)."""
+    """A training program bound to one device (one rank's, on a mesh)."""
     device: torch.device
     init_fn: Callable[[torch.Generator], TrainState]   # generator -> state
     step_fn: Callable[..., tuple]                      # -> (state, metrics)
@@ -175,6 +243,10 @@ class CompiledTrain:
     # phase_timing=True: (state, batch) -> (state, metrics) with
     # metrics["phases"] = {compute, rs, ar, ag, apply: seconds}
     timed_step_fn: Optional[Callable[[TrainState, Any], tuple]] = None
+    # on a build_mesh mesh: the batch's Sharding and the state's (a
+    # TrainState of mesh.Sharding, see state_shardings)
+    batch_sharding: Any = None
+    state_sharding: Any = None
 
 
 def _one_device(mesh, device) -> torch.device:
@@ -182,12 +254,59 @@ def _one_device(mesh, device) -> torch.device:
         devs = list(mesh) if isinstance(mesh, (list, tuple)) else [mesh]
         if len(devs) != 1 or not isinstance(devs[0], (str, torch.device)):
             raise NotImplementedError(
-                "training on several devices in one process, or on a mesh "
-                "with fsdp, tensor, sequence or pipeline axes, needs the "
-                "port's meshes (ROADMAP item 5); data parallel runs one "
-                "process per device on parallel.mesh.build_hierarchical_mesh")
+                "training on several devices in one process is not ported: "
+                "the port runs one process a device, on a "
+                "parallel.mesh.build_mesh mesh (dp, fsdp, tp, ep) or "
+                "build_hierarchical_mesh; sp and pp meshes are ROADMAP items "
+                "10 and 11")
         device = device if device is not None else devs[0]
     return default_device(device)
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    return default_device(device if device is not None else (
+        "cpu" if mesh.device_type == "cpu" else None))
+
+
+class _Sharded:
+    """The step on a `build_mesh` mesh: the global batch as DTensors (this
+    rank's window of every leaf, by `batch_sharding`), the loss and its
+    gradients through DTensor, each gradient brought to its param's
+    placements (the reduction GSPMD inserts)."""
+
+    def __init__(self, mesh):
+        for axis, item in (("sp", 10), ("pp", 11)):
+            if axis in mesh_lib.mesh_axes(mesh):
+                raise NotImplementedError(
+                    f"a mesh with {axis} > 1 is ROADMAP item {item}; "
+                    f"build_mesh meshes of dp, fsdp, tp and ep train here")
+        self.mesh = mesh
+        self.batch_sharding = mesh_lib.Sharding(
+            mesh, mesh_lib.spec_to_placements(mesh, mesh_lib.P(("dp",
+                                                                "fsdp"))))
+
+    def batch(self, batch) -> dict:
+        from ray_tpu_torch.util.collective.reshard import reshard
+
+        return {k: reshard(v, self.batch_sharding) for k, v in batch.items()}
+
+    def grads(self, loss_fn, state: TrainState, batch) -> tuple:
+        """(the mean loss, replicated, as a plain scalar; grads as DTensors
+        with their params' placements)."""
+        from torch.distributed.tensor import Replicate
+
+        params = _tree_map(lambda p: p.detach().requires_grad_(),
+                           state.params)
+        leaves = _leaves(params)
+        with torch.enable_grad(), mesh_lib.use_mesh(self.mesh):
+            loss = loss_fn(params, self.batch(batch))
+            loss = loss.redistribute(self.mesh,
+                                     (Replicate(),) * self.mesh.ndim)
+            grads = torch.autograd.grad(loss, leaves)
+        grads = iter([g.redistribute(self.mesh, p.placements)
+                      for g, p in zip(grads, leaves)])
+        return loss.to_local().detach(), _tree_map(lambda _: next(grads),
+                                                   params)
 
 
 class _PhaseClock:
@@ -313,30 +432,32 @@ class _DataParallel:
 def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
                   init_params_fn: Callable[..., Tree], mesh=None,
                   optimizer: Optional[AdamW] = None, device=None,
-                  grad_quantize=None,
-                  phase_timing: bool = False) -> CompiledTrain:
+                  grad_quantize=None, phase_timing: bool = False,
+                  params_spec: Optional[Tree] = None) -> CompiledTrain:
     """Build init and step functions for any model.
 
     loss_fn(params, batch) -> scalar; init_params_fn(generator, device=...)
     -> params. Batches are dicts of tensors or numpy arrays, moved to the
     device by the step. The step updates params and moments in place (see
-    the module docstring).
+    the module docstring). On a mesh every rank calls this and `init_fn`
+    with the same seed, and the step takes the GLOBAL batch.
 
-    With `mesh` a hierarchical `DeviceMesh` (data parallel, one process a
-    rank; every rank calls this and `init_fn` with the same seed), the step
-    takes the GLOBAL batch and uses this rank's rows, and the fused `step_fn`
-    averages the gradients with the two-level sync, optionally quantizing
-    the inter hop (`grad_quantize=QuantizedAllreduce(...)`); with error
-    feedback the residual is step state (`init_ef_fn`). `phase_timing=True`
-    adds `timed_step_fn`, the same schedule with each phase timed.
+    With `mesh` a `parallel.mesh.build_mesh` mesh, `params_spec` (a tree of
+    `PartitionSpec`s matching the params; `param_specs` of the model
+    families) places params and moments, the batch is split over
+    ``("dp", "fsdp")``, and the model's `constrain` calls read the default
+    logical rules; `batch_sharding` and `state_sharding` say where
+    everything lives.
+
+    With `mesh` a hierarchical `DeviceMesh` (data parallel), each rank uses
+    its rows of the batch, and the fused `step_fn` averages the gradients
+    with the two-level sync, optionally quantizing the inter hop
+    (`grad_quantize=QuantizedAllreduce(...)`); with error feedback the
+    residual is step state (`init_ef_fn`). `phase_timing=True` adds
+    `timed_step_fn`, the same schedule with each phase timed.
     """
     optimizer = optimizer or default_optimizer()
     hier = mesh_lib.is_hierarchical_mesh(mesh)
-    if not hier and mesh_lib.dp_axis_names(mesh) == ("dp",):
-        raise NotImplementedError(
-            "a flat dp mesh needs the port's meshes (ROADMAP item 5); "
-            "build_hierarchical_mesh(topology=Topology(world, 1)) is the "
-            "flat data-parallel case")
     if grad_quantize is not None and not hier:
         raise ValueError(
             "grad_quantize runs on the inter hop of a hierarchical mesh; "
@@ -351,19 +472,28 @@ def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
         raise ValueError(
             "phase_timing does not support error-feedback quantization "
             "(the residual is fused-step state)")
-    if hier:
-        device = default_device(device if device is not None else (
-            "cpu" if mesh.device_type == "cpu" else None))
+    sharded = None
+    if isinstance(mesh, DeviceMesh):
+        device = _mesh_device(mesh, device)
+        if not hier:
+            if params_spec is None:
+                raise ValueError("a build_mesh mesh needs params_spec (the "
+                                 "model's param_specs)")
+            sharded = _Sharded(mesh)
     else:
         device = _one_device(mesh, device)
 
     def init_fn(generator: torch.Generator) -> TrainState:
         params = init_params_fn(generator, device=device)
+        if sharded is not None:
+            params = shard_params(params, mesh, params_spec)
         if dp is not None:
             dp.layout(params)
         return TrainState(0, params, optimizer.init(params))
 
     def local_grads(state: TrainState, batch) -> tuple:
+        if sharded is not None:
+            return sharded.grads(loss_fn, state, batch)
         batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
         params = _tree_map(lambda p: p.detach().requires_grad_(),
                            state.params)
@@ -375,6 +505,8 @@ def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
 
     def _apply(state: TrainState, grads) -> tuple:
         g_norm = optimizer.update(state.params, grads, state.opt_state)
+        if sharded is not None:
+            g_norm = g_norm.full_tensor()
         return TrainState(state.step + 1, state.params, state.opt_state), \
             g_norm
 
@@ -390,8 +522,16 @@ def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
             return state, {"loss": loss, "grad_norm": g_norm,
                            "step": state.step}
 
+        extra = {}
+        if sharded is not None:
+            meta = _tree_map(lambda _: torch.empty(0, device="meta"),
+                             params_spec)
+            extra = dict(mesh=mesh, batch_sharding=sharded.batch_sharding,
+                         state_sharding=state_shardings(
+                             TrainState(0, meta, optimizer.init(meta)),
+                             params_spec, mesh))
         return CompiledTrain(device=device, init_fn=init_fn, step_fn=step_fn,
-                             grad_fn=local_grads, apply_fn=apply_fn)
+                             grad_fn=local_grads, apply_fn=apply_fn, **extra)
 
     dp = _DataParallel(mesh, grad_quantize, device)
 
@@ -463,13 +603,18 @@ def cross_worker_grad_sync(grads: Tree, group_name: str, world_size: int,
 def compile_model_train(model_mod, cfg, mesh=None, optimizer=None,
                         device=None, grad_quantize=None,
                         phase_timing: bool = False) -> CompiledTrain:
-    """compile_train for a model module exposing loss_fn / init_params
-    (ray_tpu_torch.models.gpt2)."""
+    """compile_train for a model module exposing loss_fn / init_params /
+    param_specs (ray_tpu_torch.models.{gpt2,llama,moe})."""
+    spec = None
+    if isinstance(mesh, DeviceMesh) and not mesh_lib.is_hierarchical_mesh(
+            mesh):
+        spec = model_mod.param_specs(cfg)
     return compile_train(
         loss_fn=functools.partial(model_mod.loss_fn, cfg=cfg),
         init_params_fn=functools.partial(model_mod.init_params, cfg=cfg),
         mesh=mesh, optimizer=optimizer, device=device,
-        grad_quantize=grad_quantize, phase_timing=phase_timing)
+        grad_quantize=grad_quantize, phase_timing=phase_timing,
+        params_spec=spec)
 
 
 def compile_gpt2_train(cfg, mesh=None, optimizer=None, device=None,

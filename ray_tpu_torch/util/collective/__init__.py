@@ -5,7 +5,7 @@
 | `types.py` | `types.py` (`nccl` and `gloo`) |
 | `hierarchy.py` | `hierarchy.py` (functions over process subgroups) |
 | `quantize.py` | `quantize.py` |
-| `reshard.py` | `reshard.py` (`WindowedReader` only) |
+| `reshard.py` | `reshard.py` (onto `DTensor`s; import its functions from the module, whose name the package does not shadow) |
 | `xla_group.py` (`XlaCollectiveGroup`) | `local_group.py` (`LocalCollectiveGroup`) |
 | `xla_multihost.py` (`XlaMultihostGroup`) | `dist_group.py` (`DistCollectiveGroup`) |
 | `collective.py` | `collective.py` |

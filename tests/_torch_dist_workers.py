@@ -447,3 +447,299 @@ def dp_four_ranks(rank, world, tmp):
                                None if ef is None else ef.shape)
     dist.destroy_process_group()
     return out
+
+
+# ------------------------------------------------- meshes of dp/fsdp/tp/ep
+FAMILIES = {"gpt2": ("gpt2", "GPT2Config", "gpt2-tiny"),
+            "llama": ("llama", "LlamaConfig", "llama-tiny"),
+            "moe": ("moe", "MoEConfig", "moe-tiny")}
+
+
+def family(name, **overrides):
+    """(model module, its f32 tiny config) of the port."""
+    import importlib
+
+    mod_name, cls, preset = FAMILIES[name]
+    mod = importlib.import_module(f"ray_tpu_torch.models.{mod_name}")
+    return mod, getattr(mod, cls).preset(preset, dtype=torch.float32,
+                                         **overrides)
+
+
+def sharded_state(mod, cfg, flat, mesh, opt, device="cpu"):
+    """The port's TrainState from numpy leaves, placed by param_specs."""
+    from ray_tpu_torch.parallel.mesh import use_mesh
+    from ray_tpu_torch.train import spmd
+
+    with use_mesh(mesh):
+        specs = mod.param_specs(cfg)
+    params = spmd.shard_params(mod.params_from_numpy(flat, cfg, device),
+                               mesh, specs)
+    return spmd.TrainState(0, params, opt.init(params))
+
+
+def mesh_trajectory(name, config, inp, steps=4, device="cpu", comm=None):
+    """`steps` steps of family `name` through compile_model_train on
+    build_mesh(config), from the numpy weights inp["w/<name>/..."]:
+    ([(loss, grad_norm, step)], gathered final params). With `comm` a
+    dict, step 2's collective counts by kind (CommDebugMode) go into it."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from ray_tpu_torch.parallel.mesh import build_mesh
+    from ray_tpu_torch.train import spmd
+
+    mod, cfg = family(name, attn_impl="dense")
+    mesh = build_mesh(config, device_type=device)
+    opt = spmd.default_optimizer(lr=1e-3, warmup=2, total_steps=20)
+    train = spmd.compile_model_train(mod, cfg, mesh=mesh, optimizer=opt,
+                                     device=device)
+    prefix = f"w/{name}/"
+    flat = {k[len(prefix):]: v for k, v in inp.items()
+            if k.startswith(prefix)}
+    state = sharded_state(mod, cfg, flat, mesh, opt, device)
+    batch = {"tokens": inp["tokens"]}
+    hist = []
+    for i in range(steps):
+        if comm is not None and i == 1:
+            with CommDebugMode() as mode:
+                state, m = train.step_fn(state, batch)
+            comm.update({str(k).rsplit(".", 1)[-1]: v for k, v in
+                         mode.get_comm_counts().items()})
+        else:
+            state, m = train.step_fn(state, batch)
+        hist.append((float(m["loss"]), float(m["grad_norm"]), m["step"]))
+    return hist, mod.params_to_numpy(spmd.unshard(state.params))
+
+
+def _flash_on_shards(mesh, seed=0):
+    """flash_attention on DTensors [B, H, T, Dh] sharded (batch on dp, heads
+    on tp) against the unsharded call: (out, dq, dk, dv) both ways, and the
+    shapes the three plain versions saw."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.mesh import P, spec_to_placements
+
+    seen = []
+    for name in ("flash_attention_reference", "_bwd_dq_reference",
+                 "_bwd_dkv_reference"):
+        orig = getattr(fa, name)
+
+        def spy(q, *a, _orig=orig, _name=name, **kw):
+            seen.append((_name, tuple(q.shape)))
+            return _orig(q, *a, **kw)
+        setattr(fa, name, spy)
+    g = torch.Generator().manual_seed(seed)
+    full = [torch.randn(4, 4, 64, 32, generator=g) for _ in range(4)]
+    placements = spec_to_placements(mesh, P("dp", "tp"))
+    sharded = [distribute_tensor(t, mesh, placements).requires_grad_()
+               for t in full[:3]]
+    out = fa.flash_attention(*sharded, True)
+    grads = torch.autograd.grad(out, sharded,
+                                distribute_tensor(full[3], mesh, placements))
+    local_seen = list(seen)
+    plain = [t.clone().requires_grad_() for t in full[:3]]
+    want = fa.flash_attention(*plain, True)
+    want_grads = torch.autograd.grad(want, plain, full[3])
+    return (tuple(t.full_tensor().detach() for t in (out, *grads)),
+            (want.detach(), *want_grads), local_seen)
+
+
+def mesh_four_ranks(rank, world, tmp, runs, extras=True):
+    """Four ranks: each (name, mesh config) of `runs` as a 4-step
+    trajectory; with `extras`, flash on local head shards, chunked
+    cross-entropy against the plain one on a mesh, and local_window against
+    DTensor's own shards."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from ray_tpu_torch.parallel.mesh import build_mesh, local_window
+    from ray_tpu_torch.train import spmd
+
+    inp = _inputs(tmp)
+    _default_group(rank, world, tmp)
+    out = {}
+    for name, config in runs:
+        hist, params = mesh_trajectory(name, config, inp)
+        out[(name, tuple(sorted(config.items())))] = (
+            hist, params if rank == 0 else None)
+    if not extras:
+        dist.destroy_process_group()
+        return out
+
+    mesh = build_mesh({"dp": 2, "tp": 2}, device_type="cpu")
+    out["flash"] = _flash_on_shards(mesh)
+
+    # chunked cross-entropy on a mesh: the same loss and gradients
+    flat = {k[len("w/gpt2/"):]: v for k, v in inp.items()
+            if k.startswith("w/gpt2/")}
+    fmesh = build_mesh({"fsdp": 2, "tp": 2}, device_type="cpu")
+    ce = []
+    for chunk in (0, 16):
+        mod, cfg = family("gpt2", attn_impl="dense", ce_chunk=chunk)
+        opt = spmd.default_optimizer()
+        train = spmd.compile_model_train(mod, cfg, mesh=fmesh, optimizer=opt,
+                                         device="cpu")
+        state = sharded_state(mod, cfg, flat, fmesh, opt)
+        loss, grads = train.grad_fn(state, {"tokens": inp["tokens"]})
+        ce.append((float(loss), mod.params_to_numpy(spmd.unshard(grads))))
+    out["chunked_ce"] = ce
+
+    # the backward from another thread, as the autograd engine runs that of
+    # CUDA tensors: the checkpointed blocks' recompute must shard as the
+    # forward did
+    import threading
+
+    from ray_tpu_torch.parallel.mesh import use_mesh
+
+    mod, cfg = family("gpt2", attn_impl="dense", remat=True)
+    state = sharded_state(mod, cfg, flat, mesh, spmd.default_optimizer())
+    params = spmd._tree_map(lambda p: p.detach().requires_grad_(),
+                            state.params)
+    batch = spmd._Sharded(mesh).batch(
+        {"tokens": inp["tokens"]})
+    grads = []
+    with use_mesh(mesh):
+        loss = mod.loss_fn(params, batch, cfg)
+    for _ in range(2):
+        t = threading.Thread(target=lambda: grads.append(torch.autograd.grad(
+            loss, spmd._leaves(params), retain_graph=True)))
+        t.start()
+        t.join(60)
+    out["thread_grads"] = len(grads) == 2 and all(
+        torch.equal(a.full_tensor(), b.full_tensor())
+        for a, b in zip(*grads))
+
+    # this rank's window as DTensor lays its shards out, uneven ones too
+    windows = []
+    for shape in ((7, 5), (4, 9), (3, 2)):
+        t = torch.arange(float(np.prod(shape))).reshape(shape)
+        for placements in ((Shard(0), Shard(1)), (Shard(1), Shard(0)),
+                           (Shard(0), Shard(0)), (Replicate(), Shard(1))):
+            local = distribute_tensor(t, mesh, placements).to_local()
+            windows.append(torch.equal(
+                t[local_window(shape, mesh, placements)], local))
+    out["windows"] = windows
+    dist.destroy_process_group()
+    return out
+
+
+def mesh_two_ranks(rank, world, tmp):
+    """Two ranks: gpt2-tiny on a flat dp=2 mesh (the trajectory) and on a
+    tp=2 mesh (the trajectory and step 2's collective counts)."""
+    import torch.distributed as dist
+
+    inp = _inputs(tmp)
+    _default_group(rank, world, tmp)
+    out = {"dp": mesh_trajectory("gpt2", {"dp": 2}, inp)}
+    comm = {}
+    out["tp"] = mesh_trajectory("gpt2", {"tp": 2}, inp, comm=comm)
+    out["tp_comm"] = comm
+    dist.destroy_process_group()
+    return out
+
+
+# ------------------------------------------------------------- resharding
+def reshard_ranks(rank, world, tmp):
+    """Four ranks: reshard from the host, on one mesh and across meshes,
+    scalars and trees; reshard_streaming from an array and from a
+    WindowedReader, with its stats. Returns each result's local shard (and
+    its full tensor where the test reads it whole)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ray_tpu_torch.parallel.mesh import (P, Sharding, build_mesh,
+                                             spec_to_placements)
+    from ray_tpu_torch.util.collective import reshard as R
+
+    inp = _inputs(tmp)
+    _default_group(rank, world, tmp)
+    x, big = inp["x"], inp["big"]
+    mesh4 = build_mesh({"dp": 4}, device_type="cpu")
+    mesh22 = build_mesh({"fsdp": 2, "tp": 2}, device_type="cpu")
+    rows = Sharding(mesh4, (Shard(0),))
+    out = {}
+    a = R.reshard(x, rows)
+    b = R.reshard(a, Sharding(mesh4, (Shard(1),)))
+    c = R.reshard(b, Sharding(mesh22, spec_to_placements(mesh22,
+                                                         P("fsdp", "tp"))))
+    d = R.reshard(torch.from_numpy(x), Sharding(
+        mesh22, spec_to_placements(mesh22, P(None, ("fsdp", "tp")))))
+    for name, t in (("host", a), ("same_mesh", b), ("cross_mesh", c),
+                    ("tensor", d)):
+        out[name] = (t.to_local().clone(), tuple(t.placements),
+                     t.full_tensor())
+    s = R.reshard(np.float32(5.0), Sharding(mesh22, (Replicate(),) * 2))
+    out["scalar"] = (tuple(s.shape), float(s.full_tensor()))
+    tree = R.reshard_tree({"a": x, "b": x.T.copy()},
+                          Sharding(mesh4, (Replicate(),)))
+    out["tree"] = {k: v.full_tensor() for k, v in tree.items()}
+    per_leaf = R.reshard_tree({"a": x, "b": {"c": x.T.copy()}},
+                              {"a": rows, "b": {"c": Sharding(
+                                  mesh4, (Shard(1),))}})
+    out["tree_per_leaf"] = (per_leaf["a"].to_local().clone(),
+                            per_leaf["b"]["c"].to_local().clone())
+
+    chunk_bytes = 64 * 1024   # the leaf is 512 KB, a window 128 KB
+    st = R.reshard_streaming(big, rows, chunk_bytes=chunk_bytes,
+                             max_in_flight=2)
+    out["stream"] = (st.to_local().clone(), dict(R.last_stream_stats),
+                     R.reshard(big, rows).to_local().clone())
+    rep = R.reshard_streaming(big, Sharding(mesh4, (Replicate(),)),
+                              chunk_bytes=chunk_bytes, max_in_flight=2)
+    out["stream_rep"] = (rep.to_local().clone(), dict(R.last_stream_stats))
+    blocks = [(((0, 300), (0, 128)), "a"), (((300, 1024), (0, 128)), "b")]
+    parts = {"a": big[:300], "b": big[300:]}
+    reader = R.WindowedReader(big.shape, big.dtype, blocks,
+                              lambda k, r0, r1: parts[k][r0:r1])
+    cols = Sharding(mesh22, spec_to_placements(mesh22, P("tp", "fsdp")))
+    rd = R.reshard_streaming(reader, cols, chunk_bytes=4096,
+                             max_in_flight=3, out_dtype=np.float64)
+    out["reader"] = (rd.to_local().clone(), dict(R.last_stream_stats),
+                     R.reshard(big.astype(np.float64), cols).to_local()
+                     .clone())
+    dist.destroy_process_group()
+    return out
+
+
+def mesh_cards(rank, world, tmp):
+    """One rank a card over NCCL: gpt2-tiny on dp=2,tp=2 and fsdp=2,tp=2
+    and moe-tiny on ep=4 in f32 (the CPU tests' trajectories), then one
+    bf16 gpt2-tiny step on dp=2,tp=2 through the flash kernels, counting
+    each kernel's launches on this rank."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.mesh import build_mesh
+    from ray_tpu_torch.train import spmd
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "default"), world),
+        rank=rank, world_size=world, device_id=dev)
+    inp = _inputs(tmp)
+    out = {}
+    for name, config in (("gpt2", {"dp": 2, "tp": 2}),
+                         ("gpt2", {"fsdp": 2, "tp": 2}), ("moe", {"ep": 4})):
+        out[(name, tuple(sorted(config.items())))] = mesh_trajectory(
+            name, config, inp, device="cuda")
+    mod, cfg = family("gpt2", attn_impl="flash")
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    mesh = build_mesh({"dp": 2, "tp": 2})
+    opt = spmd.default_optimizer()
+    train = spmd.compile_model_train(mod, cfg, mesh=mesh, optimizer=opt)
+    flat = {k[len("w/gpt2/"):]: v for k, v in inp.items()
+            if k.startswith("w/gpt2/")}
+    state = sharded_state(mod, cfg, flat, mesh, opt, "cuda")
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    state, m = train.step_fn(state, {"tokens": inp["tokens"]})
+    after = (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+             fa.flash_attention_bwd_dkv.launches)
+    out["bf16"] = (tuple(a - b for a, b in zip(after, before)),
+                   float(m["loss"]), float(m["grad_norm"]))
+    dist.destroy_process_group()
+    return out

@@ -481,3 +481,63 @@ def test_nccl_across_cards(cuda, tmp_path):
     for key, arr in w1.items():
         np.testing.assert_allclose(w2[key], arr, atol=1e-5, rtol=1e-4)
     assert np.isfinite(np.array(outs[0]["int8-ef"][0])).all()
+
+
+@pytest.mark.cuda
+def test_mesh_across_cards(cuda, tmp_path):
+    # four ranks, one card each, over NCCL: gpt2-tiny on dp=2,tp=2 and
+    # fsdp=2,tp=2 and moe-tiny on ep=4, 4 f32 steps within the CPU sharded
+    # tests' bounds of one device (losses and grad norms atol=1e-5,
+    # rtol=1e-4; params 1e-4); a bf16 step launches K1 twice (forward and
+    # the remat recompute), K2 and K3 once per layer on every rank's local
+    # [B/2, H/2] shard. Then chip_smoke's phase 6c (c) at full width over
+    # NCCL on two of the cards: GPT-2-125M on tp=2 and fsdp=2 and the
+    # mixtral-width MoE on ep=2 against one process, with its own gates
+    import chip_smoke
+    import _torch_dist_workers as W
+    from ray_tpu_torch.train import spmd
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards: one rank a card over NCCL")
+    rng = np.random.default_rng(9)
+    tokens = rng.integers(0, 512, (4, 33))
+    weights, refs = {}, {}
+    for name in ("gpt2", "moe"):
+        mod, cfg = W.family(name, attn_impl="dense")
+        flat = mod.params_to_numpy(mod.init_params(
+            torch.Generator().manual_seed(0), cfg, device="cpu"))
+        weights.update({f"w/{name}/{k}": v for k, v in flat.items()})
+        opt = spmd.default_optimizer(lr=1e-3, warmup=2, total_steps=20)
+        train = spmd.compile_model_train(mod, cfg, optimizer=opt,
+                                         device=cuda)
+        params = mod.params_from_numpy(flat, cfg, device=cuda)
+        state = spmd.TrainState(0, params, opt.init(params))
+        hist = []
+        for _ in range(4):
+            state, m = train.step_fn(state, {"tokens": tokens})
+            hist.append((float(m["loss"]), float(m["grad_norm"]), m["step"]))
+        refs[name] = (hist, mod.params_to_numpy(state.params))
+    np.savez(tmp_path / "inputs.npz", tokens=tokens, **weights)
+    outs = W.run_ranks(W.mesh_cards, 4, str(tmp_path), timeout=600)
+    for key, o in outs[0].items():
+        if key == "bf16":
+            continue
+        (hist, params), (whist, wparams) = o, refs[key[0]]
+        for (gl, gn, gs), (wl, wn, ws) in zip(hist, whist):
+            assert gs == ws
+            np.testing.assert_allclose(gl, wl, atol=1e-5, rtol=1e-4)
+            np.testing.assert_allclose(gn, wn, atol=1e-5, rtol=1e-4)
+        for k, arr in params.items():
+            np.testing.assert_allclose(arr, wparams[k], atol=1e-4, rtol=0,
+                                       err_msg=str((key, k)))
+        for other in outs[1:]:
+            assert other[key][0] == hist
+    for o in outs:
+        launches, loss, norm = o["bf16"]
+        assert launches == (4, 2, 2) and np.isfinite(loss + norm)
+    print(f"[mesh across cards] bf16 dp=2,tp=2 step launches by rank: "
+          f"{[o['bf16'][0] for o in outs]}")
+    (tmp_path / "pair").mkdir()
+    paths = chip_smoke.mesh_pair(chip_smoke.gpu_line(),
+                                 str(tmp_path / "pair"), "nccl")
+    print(f"[mesh across cards] full width, rank 0's launches: {paths}")

@@ -224,8 +224,15 @@ def test_value_errors_as_jax_raises(world1):
     from torch.distributed.device_mesh import DeviceMesh
 
     flat = DeviceMesh("cpu", torch.arange(1), mesh_dim_names=("dp",))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="params_spec"):
         _linear_train(flat)
+    train = _linear_train(flat, params_spec={"w": PM.P()})
+    state, m = train.step_fn(train.init_fn(torch.Generator()),
+                             {"x": np.ones((2, 8), np.float32)})
+    assert float(m["loss"]) == 0.0 and state.step == 1
+    seq = DeviceMesh("cpu", torch.arange(1), mesh_dim_names=("sp",))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        _linear_train(seq, params_spec={"w": PM.P()})
 
 
 def test_batch_rows_split_evenly():
