@@ -74,16 +74,32 @@ Phases, each reported on its own line:
    path's, step time, tokens/s, MFU and a profiled step;
 9. MoE at mixtral-8x7b's widths cut to 2 layers: forward with the aux
    metrics, flash against dense on the first step's loss, and 5 training
-   steps through compile_model_train with exact launches per step.
+   steps through compile_model_train with exact launches per step;
+10. ring attention (phase_ring): the ring's per-rank schedule, the one the
+   distributed path runs, driven for sp virtual ranks on the card with an
+   in-process rotation, at Llama-3-8B's attention widths at T=16384 on
+   sp=4 and at GPT-2-125M's training shape on sp=2: sp(sp+1)/2 launches
+   of each kernel, the ring's out, lse and gradients against one K1 + K2 +
+   K3 over the whole sequence, each chunk pair against its plain versions,
+   the ring timed against one-shot flash; the non-causal chunk pair's
+   kernels timed against their bounds, plain versions and SDPA;
+11. checkpoints (phase_checkpoint): GPT-2-125M's whole TrainState after 2
+   steps of phase 6's configuration saved and restored, gathering and
+   streaming: bit-equal leaves and a resumed step bit-equal to the
+   unbroken run's, MB written and ms.
+Across two cards, tests/test_torch_cuda.py::test_sp_across_cards runs
+`sp_pair`: GPT-2-125M on sp=2 with ring and Ulysses and tinyllama-1.1b with
+ring over NCCL against one process, and the sp=2 checkpoint on one card.
 Phase 2 also holds the kernels at the Llama paths' shapes (tinyllama's
 training, llama3-8b's forward, K/V expanded from the KV heads) and times
 that expansion. Phases 4-5 (GPT-2 inference), 5b (the OpenAI server), 6
 (GPT-2 training), 6b's (b) (data-parallel training), 6c's (a) and (c)
-(sharded training), 7, 8 and 9 are the main paths: every kernel's launch
-count is set to 0 before each and read right after. The line before the
-last lists the kernels as JSON, with the GPT-2 training path's counts under
-"launches" and every path's under "launches_by_path"; the last line is
-{"ok": true, "device": {...}}.
+(sharded training), 7, 8, 9, each case of 10, and 11 are the main paths:
+every kernel's launch count is set to 0 before each and read right after.
+The line before the last lists the kernels as JSON, with the GPT-2
+training path's counts under "launches", every path's under
+"launches_by_path" and the ring's non-causal chunk pair under
+"ring_chunk"; the last line is {"ok": true, "device": {...}}.
 Any failure raises and the script exits non-zero without that line. Needs
 one CUDA card; imports nothing of JAX.
 
@@ -119,10 +135,12 @@ import torch.nn.functional as F
 from ray_tpu_torch.models import gpt2, llama, moe
 from ray_tpu_torch.ops import _kernels
 from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.ops import ring_attention as ring
 from ray_tpu_torch.serve.compiled_chain import CHAIN_ERR
 from ray_tpu_torch.serve.llm import LLMEngine, LLMServer, OpenAIServer
 from ray_tpu_torch.parallel.mesh import (MeshConfig, build_hierarchical_mesh,
                                          build_mesh, hier_groups)
+from ray_tpu_torch.train import checkpoint as ckpt_lib
 from ray_tpu_torch.train import spmd
 from ray_tpu_torch.util import collective as col
 from ray_tpu_torch.util.collective._comm import HOST_STAGED
@@ -295,6 +313,31 @@ GLOO_OPS = {"all_gather": "Shard -> Replicate",
             "all_reduce": "Partial -> Replicate",
             "all_to_all": "Shard(1) -> Shard(0)",
             "scatter": "distribute_tensor"}
+
+# phase_ring: the ring's per-rank schedule (ops.ring_attention's
+# generators, the ones the distributed path drives) run for sp virtual
+# ranks on the one card with an in-process rotation. (name, B, H, KV heads,
+# T, Dh, sp): Llama-3-8B's attention widths at long context, K/V expanded
+# 4x from the KV heads as llama.expand_kv does (chunks of 4096), and
+# GPT-2-125M's training shape (QKV views, chunks of 512). The first case's
+# non-causal chunk pair fills the kernels line's "ring_chunk" records.
+RING_CASES = (("llama3-8b-long", 1, 32, 8, 16384, 128, 4),
+              ("gpt2-125m-train", 24, 12, 12, 1024, 64, 2))
+# phase_checkpoint: phase 6's configuration, CKPT_STEPS steps, then the
+# whole TrainState saved and restored gathering and streaming (CKPT_CHUNK
+# bytes a chunk)
+CKPT_STEPS = 2
+CKPT_CHUNK = 64 << 20
+# sp_pair (tests/test_torch_cuda.py::test_sp_across_cards, two cards over
+# NCCL): (label, family, mesh config, steps, attention) against one process
+# on one card at the same global batch (flash); GPT-2-125M at SP_B x SEQ,
+# tinyllama-1.1b at SP_LLAMA_B x LLAMA_TRAIN_T. The first run's state is
+# saved by both ranks and restored on one card.
+SP_B = 8
+SP_LLAMA_B = 2
+SP_RUNS = (("gpt2 sp=2 ring", "gpt2", {"sp": 2}, 3, "ring"),
+           ("gpt2 sp=2 ulysses", "gpt2", {"sp": 2}, 3, "ulysses"),
+           ("tinyllama sp=2 ring", "llama", {"sp": 2}, 2, "ring"))
 
 # (name, B, H, T, Dh, dtype, causal, layout). layout "qkv": q, k, v are
 # views split from one [B, T, 3*H*Dh] tensor and dO is the transposed view
@@ -1674,14 +1717,23 @@ def _gloo_cuda_ops(tmp: str) -> dict:
     return out
 
 
-def _mesh_case(fam: str, conf: dict, device) -> tuple:
+def _mesh_case(fam: str, conf: dict, device, impl: str = "flash"
+               ) -> tuple:
     """(model module, config, tokens [B, T+1] on the CPU, the init
-    generator's device) of a MESH_RUNS family: GPT-2 at phase 6's
-    configuration, the MoE at phase 9's with conf["moe_layers"] layers and
-    its weights drawn on the card."""
+    generator's device) of a MESH_RUNS or SP_RUNS family, its attention
+    `impl`: GPT-2 at phase 6's configuration, tinyllama at phase 8's and
+    the MoE at phase 9's with conf["moe_layers"] layers, the last two with
+    their weights drawn on the card."""
     if fam == "gpt2":
-        cfg = _dp_cfg(conf["preset"])
+        cfg = dataclasses.replace(_dp_cfg(conf["preset"]), attn_impl=impl)
         return gpt2, cfg, _dp_tokens(cfg, conf["b"], conf["seq"]), "cpu"
+    if fam == "llama":
+        cfg = llama.LlamaConfig.preset(conf["llama_preset"], attn_impl=impl,
+                                       remat=True)
+        tokens = torch.randint(0, cfg.vocab_size, (conf["llama_b"],
+                                                   conf["llama_t"] + 1),
+                               generator=torch.Generator().manual_seed(2))
+        return llama, cfg, tokens, device
     cfg = moe.MoEConfig.preset(conf["moe_preset"], n_layer=conf["moe_layers"],
                                attn_impl="flash")
     tokens = torch.randint(0, cfg.vocab_size, (conf["moe_b"],
@@ -1700,7 +1752,7 @@ def _mesh_refs(conf: dict, tmp: str) -> dict:
     {label: [(loss, grad_norm)]}; GPT-2's final params go to
     ref-<label>.pt for the ranks."""
     refs = {}
-    for label, fam, _, steps in conf["runs"]:
+    for label, fam, _, steps, *_ in conf["runs"]:
         model, cfg, tokens, init_dev = _mesh_case(fam, conf, DEVICE)
         train = spmd.compile_model_train(model, cfg, optimizer=_dp_opt(),
                                          device=DEVICE)
@@ -1738,8 +1790,8 @@ def _mesh_rank(rank: int, world: int, tmp: str, conf: dict) -> None:
         os.path.join(tmp, f"mesh-{conf['backend']}"), world), rank=rank,
         world_size=world, **({"device_id": device} if nccl else {}))
     out = {}
-    for label, fam, config, steps in conf["runs"]:
-        model, cfg, tokens, init_dev = _mesh_case(fam, conf, device)
+    for label, fam, config, steps, *impl in conf["runs"]:
+        model, cfg, tokens, init_dev = _mesh_case(fam, conf, device, *impl)
         mesh = build_mesh(config, device_type=device.type)
         train = spmd.compile_model_train(model, cfg, mesh=mesh,
                                          optimizer=_dp_opt(), device=device)
@@ -1767,6 +1819,13 @@ def _mesh_rank(rank: int, world: int, tmp: str, conf: dict) -> None:
             gap = math.sqrt(num / den)
         out[label] = dict(hist=hist, secs=secs, launches=_flash_counts(),
                           comm=comm, gap=gap)
+        if label == conf.get("save"):
+            spmd.save_state_sharded(state, os.path.join(tmp, "ckpt"),
+                                    world_size=world, process_index=rank)
+            saved = _state_host(state)      # a collective: every rank
+            if rank == 0:
+                torch.save(saved, os.path.join(tmp, "ckpt-state.pt"))
+            del saved
         del train, state
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -1855,6 +1914,330 @@ def phase_mesh(card: str) -> dict:
         return paths
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _state_host(state) -> dict:
+    """{leaf key: CPU tensor} of a TrainState as save_state_sharded keys
+    it, DTensors gathered (a collective), the step and counts as ints."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for kp, leaf in ckpt_lib._flatten_with_path(spmd._state_as_tree(state)):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
+        out[ckpt_lib._leaf_key(kp)] = (
+            leaf.detach().to("cpu", copy=True)
+            if isinstance(leaf, torch.Tensor) else int(leaf))
+    return out
+
+
+def _same_state(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+        else a[k] == b[k] for k in a)
+
+
+def sp_pair(card: str, tmp: str, backend: str = "nccl") -> dict:
+    """SP_RUNS on two ranks over NCCL, one a card, against one process on
+    one card at the same global batch (flash); then the first run's state,
+    saved by both ranks, restored on one card bit-equal to the state the
+    ranks held. Raises if a gate fails; returns each run's launches by
+    rank. tests/test_torch_cuda.py::test_sp_across_cards runs it."""
+    conf = dict(device=DEVICE, backend=backend, preset=PRESET, seq=SEQ,
+                b=SP_B, llama_preset=LLAMA_TRAIN, llama_b=SP_LLAMA_B,
+                llama_t=LLAMA_TRAIN_T, runs=SP_RUNS, save=SP_RUNS[0][0])
+    refs = _mesh_refs(conf, tmp)
+    _join(_spawn(_mesh_rank, 2, (2, tmp, conf), DP_SPAWN_S))
+    outs = [torch.load(os.path.join(tmp, f"mesh-rank{r}.pt"))
+            for r in range(2)]
+    paths = {}
+    for label, fam, config, steps, impl in SP_RUNS:
+        _, cfg, _, _ = _mesh_case(fam, conf, DEVICE, impl)
+        ref, o = refs[label], outs[0][label]
+        gap = max(abs(a[0] - b[0]) for a, b in zip(o["hist"], ref))
+        gap_n = max(abs(a[1] - b[1]) / b[1] for a, b in zip(o["hist"], ref))
+        # sp rank r runs the ring's r + 1 live chunk pairs in each layer:
+        # K1 in the forward and the remat recompute, K2 and K3 once
+        want = [tuple(steps * k * (r + 1) if impl == "ring" else 0
+                      for k in (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer))
+                for r in range(2)]
+        got = [x[label]["launches"] for x in outs]
+        ok = (all(x[label]["hist"] == o["hist"] for x in outs)
+              and got == want
+              and all(math.isfinite(v) for h in o["hist"] for v in h)
+              and gap <= TOL_TRAIN_LOSS and gap_n <= TOL_TRAIN_GRAD_NORM
+              and (o["gap"] is None or o["gap"] <= TOL_TRAIN_GRAD_NORM))
+        B, T = ((SP_B, SEQ) if fam == "gpt2"
+                else (SP_LLAMA_B, LLAMA_TRAIN_T))
+        pgap = ("not checked (tinyllama)" if o["gap"] is None
+                else f"{o['gap']:.3g} (tol {TOL_TRAIN_GRAD_NORM})")
+        log(f"[sp {label}] B={B} T={T} on {backend}, two ranks, a sequence "
+            f"half "
+            f"({T // 2} positions) each, {steps} steps: losses "
+            f"{' '.join(f'{v:.6f}' for v, _ in o['hist'])}; one process "
+            f"(flash) {' '.join(f'{v:.6f}' for v, _ in ref)}; max |dloss| "
+            f"{gap:.3g} (tol {TOL_TRAIN_LOSS}); grad norms "
+            f"{' '.join(f'{v:.6f}' for _, v in o['hist'])}, one process "
+            f"{' '.join(f'{v:.6f}' for _, v in ref)}, max relative gap "
+            f"{gap_n:.3g} (tol {TOL_TRAIN_GRAD_NORM}); gathered params' "
+            f"relative distance {pgap}; K1/K2/K3 launches by rank {got} "
+            f"(want {want}); step 2's collectives {o['comm']}; step "
+            f"{1e3 * statistics.median(o['secs'][1:]):.2f} ms (median of "
+            f"steps 2+) on {card}")
+        if not ok:
+            raise AssertionError(f"the {label} run failed its gates")
+        paths[label] = got
+    # the checkpoint of the first run, saved by the two ranks, on one card
+    _, cfg, _, _ = _mesh_case(SP_RUNS[0][1], conf, DEVICE)
+    train = spmd.compile_model_train(gpt2, cfg, optimizer=_dp_opt(),
+                                     device=DEVICE)
+    t0 = time.perf_counter()
+    got = _state_host(spmd.restore_state_sharded(os.path.join(tmp, "ckpt"),
+                                                 train))
+    ms = 1e3 * (time.perf_counter() - t0)
+    same = _same_state(got, torch.load(os.path.join(tmp,
+                                                    "ckpt-state.pt")))
+    log(f"[sp checkpoint] {SP_RUNS[0][0]}'s state after {SP_RUNS[0][3]} "
+        f"steps, saved by both ranks, restored on one card in {ms:.1f} ms:"
+        f" {'bit-equal' if same else 'DIFFERS'}")
+    if not same:
+        raise AssertionError("the sp=2 checkpoint restored on one card "
+                             "differs from the ranks' state")
+    return paths
+
+
+def _ring_run(q, k, v, do, sp: int, scale: float) -> tuple:
+    """The ring's forward and backward schedules driven for sp virtual
+    ranks on q, k, v, dO [B, H, T, Dh]: ([(out, lse)], [(dq, dk, dv)]),
+    one entry a rank."""
+    qs, ks, vs, dos = (t.chunk(sp, dim=2) for t in (q, k, v, do))
+    fwd = ring.drive_virtual([ring.ring_forward(
+        qs[r], ks[r], vs[r], r, sp, True, scale) for r in range(sp)])
+    bwd = ring.drive_virtual([ring.ring_backward(
+        qs[r], ks[r], vs[r], *fwd[r], dos[r], r, sp, True, scale)
+        for r in range(sp)])
+    return fwd, bwd
+
+
+def _ring_pairs(q, k, v, do, fwd, sp: int, scale: float) -> tuple:
+    """Each live chunk pair's K1, K2, K3 against their plain versions, K2
+    and K3 fed the pair's rank's global out and lse: (max |d|, all within
+    their tolerances)."""
+    bf16 = torch.bfloat16
+    qs, ks, vs, dos = (t.chunk(sp, dim=2) for t in (q, k, v, do))
+    bq = bk = fa.DEFAULT_BLOCK_Q
+    worst, ok = 0.0, True
+    for r in range(sp):
+        out, lse = fwd[r]
+        for j in range(r + 1):
+            c = j == r
+            args = (qs[r], ks[j], vs[j])
+            o, l = fa.flash_attention_fwd(*args, c, scale)
+            po, pl = fa.flash_attention_reference(*args, c, scale)
+            dq, delta = fa.flash_attention_bwd_dq(*args, out, lse, dos[r], c,
+                                                  scale)
+            pdq, pdelta = fa._bwd_dq_reference(*args, out, lse, dos[r], c,
+                                               scale, bq, bk)
+            dk, dv = fa.flash_attention_bwd_dkv(*args, dos[r], lse, delta, c,
+                                                scale)
+            pdk, pdv = fa._bwd_dkv_reference(*args, dos[r], lse, pdelta, c,
+                                             scale, bq, bk)
+            for a, b, tol in ((o, po, TOL_PLAIN[bf16]), (l, pl, TOL_LSE),
+                              (dq, pdq, TOL_GRAD_PLAIN[bf16]),
+                              (delta, pdelta, TOL_LSE),
+                              (dk, pdk, TOL_GRAD_PLAIN[bf16]),
+                              (dv, pdv, TOL_GRAD_PLAIN[bf16])):
+                err, good = close(a, b, **tol)
+                worst, ok = max(worst, err), ok and good
+    return worst, ok
+
+
+def _ring_chunk_records(q, k, v, do, sp: int, scale: float) -> list:
+    """K1, K2 and K3 on the non-causal chunk pair (rank 1's Q, rank 0's
+    K/V), the ring's own shape: [{ms, plain_ms, bound_ms, bound_by,
+    library_ms, max_abs_err}] for K1, K2, K3."""
+    bf16 = torch.bfloat16
+    qc, kc, vc, dc = (t.chunk(sp, dim=2)[i] for t, i in
+                      ((q, 1), (k, 0), (v, 0), (do, 1)))
+    B, H, n, Dh = qc.shape
+    bq = bk = fa.DEFAULT_BLOCK_Q
+    o, l = fa.flash_attention_fwd(qc, kc, vc, False, scale)
+    dq, delta = fa.flash_attention_bwd_dq(qc, kc, vc, o, l, dc, False, scale)
+    dk, dv = fa.flash_attention_bwd_dkv(qc, kc, vc, dc, l, delta, False,
+                                        scale)
+    po, _ = fa.flash_attention_reference(qc, kc, vc, False, scale)
+    pdq, pdelta = fa._bwd_dq_reference(qc, kc, vc, o, l, dc, False, scale,
+                                       bq, bk)
+    pdk, pdv = fa._bwd_dkv_reference(qc, kc, vc, dc, l, pdelta, False, scale,
+                                     bq, bk)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (qc, kc, vc))
+    so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=False)
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=False))
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+        so, (qs, ks, vs), dc, retain_graph=True))
+    rows = [
+        (lambda: fa.flash_attention_fwd(qc, kc, vc, False, scale),
+         lambda: fa.flash_attention_reference(qc, kc, vc, False, scale),
+         attention_bound, close(o, po, 0, 0)[0], sdpa_fwd),
+        (lambda: fa.flash_attention_bwd_dq(qc, kc, vc, o, l, dc, False,
+                                           scale),
+         lambda: fa._bwd_dq_reference(qc, kc, vc, o, l, dc, False, scale,
+                                      bq, bk),
+         dq_bound, close(dq, pdq, 0, 0)[0], sdpa_bwd),
+        (lambda: fa.flash_attention_bwd_dkv(qc, kc, vc, dc, l, delta, False,
+                                            scale),
+         lambda: fa._bwd_dkv_reference(qc, kc, vc, dc, l, delta, False,
+                                       scale, bq, bk),
+         dkv_bound, max(close(dk, pdk, 0, 0)[0], close(dv, pdv, 0, 0)[0]),
+         sdpa_bwd)]
+    recs = []
+    for run, plain, bound, err, lib in rows:
+        b_ms, b_by = bound(B, H, n, n, Dh, bf16, False)
+        recs.append(dict(max_abs_err=err, ms=time_ms(run),
+                         plain_ms=time_ms(plain, iters=2, warmup=1),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    return recs
+
+
+def phase_ring(gen: torch.Generator, card: str) -> tuple:
+    """Ring attention's schedule on one card (RING_CASES): each case's
+    launches count from 0 and must be sp(sp+1)/2 of each kernel (the live
+    chunk pairs); the ring's out, lse, dQ, dK, dV against one K1 + K2 + K3
+    over the whole sequence, and each chunk pair's kernels against their
+    plain versions, within the bf16 plain tolerances; the ring timed
+    against one-shot flash. Returns ({path: launches}, the first case's
+    non-causal chunk records for K1, K2, K3)."""
+    bf16 = torch.bfloat16
+    paths, chunk = {}, None
+    for name, B, H, KV, T, Dh, sp in RING_CASES:
+        layout = "qkv" if KV == H else f"gqa{H // KV}"
+        q, k, v, do = _case_inputs(gen, B, H, T, Dh, bf16, layout)
+        scale = 1.0 / math.sqrt(Dh)
+        live = sp * (sp + 1) // 2
+        _zero_counts()
+        fwd, bwd = _ring_run(q, k, v, do, sp, scale)
+        torch.cuda.synchronize()
+        launches = _flash_counts()
+        paths[f"{name} ring sp={sp} (virtual ranks)"] = launches
+        out, lse = (torch.cat(t, dim=2) for t in zip(*fwd))
+        grads = [torch.cat(t, dim=2) for t in zip(*bwd)]
+        o1, l1 = fa.flash_attention_fwd(q, k, v, True, scale)
+        g1 = fa.flash_attention_bwd(q, k, v, o1, l1, do, True, scale)
+        errs = [close(a, b, **TOL_PLAIN[bf16])
+                for a, b in ((out, o1), (lse, l1), *zip(grads, g1))]
+        pair_err, pairs_ok = _ring_pairs(q, k, v, do, fwd, sp, scale)
+        finite = all(torch.isfinite(t).all() for t in (out, lse, *grads))
+        del fwd, bwd, out, lse, grads, g1
+        ms = {
+            "ring fwd": time_ms(lambda: ring.drive_virtual([
+                ring.ring_forward(a, b, c, r, sp, True, scale)
+                for r, (a, b, c) in enumerate(zip(
+                    *(t.chunk(sp, dim=2) for t in (q, k, v))))]),
+                iters=3, warmup=1),
+            "ring fwd+bwd": time_ms(lambda: _ring_run(q, k, v, do, sp,
+                                                      scale),
+                                    iters=3, warmup=1),
+            "one-shot fwd": time_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, True, scale), iters=3, warmup=1),
+            "one-shot fwd+bwd": time_ms(lambda: fa.flash_attention_bwd(
+                q, k, v, *fa.flash_attention_fwd(q, k, v, True, scale), do,
+                True, scale), iters=3, warmup=1)}
+        if chunk is None:
+            chunk = _ring_chunk_records(q, k, v, do, sp, scale)
+        log(f"[ring {name}] B={B} H={H} ({KV} KV heads) T={T} Dh={Dh} bf16 "
+            f"causal, sp={sp} virtual ranks (chunks of {T // sp}): K1/K2/K3 "
+            f"launches {launches} (want {(live,) * 3}); ring vs one-shot "
+            f"flash over the whole T: |d| out, lse, dQ, dK, dV "
+            f"{', '.join(f'{e:.3g}' for e, _ in errs)} (tol "
+            f"{TOL_PLAIN[bf16]}); each live chunk pair vs its plain "
+            f"versions (K2/K3 on the global out and lse) max |d| "
+            f"{pair_err:.3g}; " + ", ".join(f"{k} {v:.4f} ms"
+                                            for k, v in ms.items())
+            + f" on {card}")
+        if launches != (live,) * 3:
+            raise AssertionError(f"ring {name}: launches {launches} != "
+                                 f"{(live,) * 3}")
+        if not (finite and pairs_ok and all(ok for _, ok in errs)):
+            raise AssertionError(f"ring {name} disagrees with one-shot "
+                                 f"flash or its chunk pairs with their "
+                                 f"plain versions")
+    name, B, H, KV, T, Dh, sp = RING_CASES[0]
+    log(f"[ring chunk] {name}'s non-causal chunk pair B={B} H={H} "
+        f"{T // sp}x{T // sp} Dh={Dh} bf16: " + "; ".join(
+            f"{k} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} {r['bound_by']}, "
+            f"{100 * r['bound_ms'] / r['ms']:.2f}%, sdpa "
+            f"{r['library_ms']:.4f}, |d| vs plain {r['max_abs_err']:.3g})"
+            for k, r in zip(("K1", "K2", "K3"), chunk)))
+    return paths, chunk
+
+
+def phase_checkpoint(card: str) -> tuple:
+    """GPT-2-125M's whole TrainState at phase 6's configuration after
+    CKPT_STEPS steps: save_state_sharded to a temp directory, then
+    restore_state_sharded gathering and streaming; every leaf bit-equal to
+    the saved state, both counts equal to the step, and one step from each
+    restored state bit-equal (loss and every param) to one more step of
+    the unbroken run. Launch counts start at 0: the path's steps. Returns
+    them."""
+    cfg = _dp_cfg(PRESET)
+    batch = {"tokens": _dp_tokens(cfg, TRAIN_B, SEQ).to(DEVICE)}
+    train = spmd.compile_model_train(gpt2, cfg, optimizer=_dp_opt(),
+                                     device=DEVICE)
+    _zero_counts()
+    state = train.init_fn(torch.Generator().manual_seed(0))
+    for _ in range(CKPT_STEPS):
+        state, _ = train.step_fn(state, batch)
+    saved = _state_host(state)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spmd.save_state_sharded(state, tmp)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        mb = sum(os.path.getsize(os.path.join(tmp, f))
+                 for f in os.listdir(tmp)) / 1e6
+        state, m = train.step_fn(state, batch)
+        unbroken = (float(m["loss"]), _state_host(state))
+        del state
+        results = {}
+        for how, kw in (("gathering", {}),
+                        ("streaming", {"stream_chunk_bytes": CKPT_CHUNK})):
+            t0 = time.perf_counter()
+            got = spmd.restore_state_sharded(tmp, train, **kw)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            same = _same_state(_state_host(got), saved)
+            counts = (got.step, got.opt_state.count)
+            got, m = train.step_fn(got, batch)
+            resumed = (float(m["loss"]) == unbroken[0]
+                       and _same_state(_state_host(got), unbroken[1]))
+            results[how] = (ms, same, counts, resumed)
+            del got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = _flash_counts()
+    steps = CKPT_STEPS + 1 + len(results)
+    per_step = (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer)
+    log(f"[checkpoint {PRESET}] B={TRAIN_B} T={SEQ} remat=dots, the "
+        f"TrainState after {CKPT_STEPS} steps ({len(saved)} leaves): "
+        f"{mb:.2f} MB written in {save_ms:.1f} ms; " + "; ".join(
+            f"{how} restore {ms:.1f} ms, leaves "
+            f"{'bit-equal' if same else 'DIFFER'}, step and counts {counts}, "
+            f"the next step {'bit-equal' if resumed else 'DIFFERS'} to the "
+            f"unbroken run's" for how, (ms, same, counts, resumed)
+            in results.items())
+        + f" ({CKPT_CHUNK / 2 ** 20:g} MiB chunks streaming); K1/K2/K3 "
+        f"launches {launches} over {steps} steps on {card}")
+    for how, (_, same, counts, resumed) in results.items():
+        if not (same and resumed and counts == (CKPT_STEPS, CKPT_STEPS)):
+            raise AssertionError(f"the {how} restore is not the saved state "
+                                 f"or does not resume it")
+    if launches != tuple(steps * k for k in per_step):
+        raise AssertionError(f"K1/K2/K3 launches {launches} != {steps} x "
+                             f"{per_step}")
+    return launches
 
 
 def _logit_gap(a, b) -> tuple:
@@ -2160,6 +2543,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     _zero_counts()
     paths[f"{MOE_PRESET} {MOE_LAYERS}-layer train"] = phase_moe(card)
+    torch.cuda.empty_cache()
+
+    # ring attention's schedule on virtual ranks, then a TrainState saved
+    # and restored: each path from counts at 0
+    ring_paths, ring_chunk = phase_ring(gen, card)
+    paths.update(ring_paths)
+    torch.cuda.empty_cache()
+    paths[f"{PRESET} checkpoint save/restore"] = phase_checkpoint(card)
     log(f"[paths] K1/K2/K3 launches by path: {paths}")
 
     # each kernel's records by case: the GPT-2 training path's fill the
@@ -2174,7 +2565,8 @@ def main() -> int:
              replaces=f"ray_tpu/ops/flash_attention.py:{line}",
              launches=launches[i], **by_case["train-path"],
              launches_by_path={p: c[i] for p, c in paths.items()},
-             llama_shapes={n: by_case[n] for n in LLAMA_SHAPES})
+             llama_shapes={n: by_case[n] for n in LLAMA_SHAPES},
+             ring_chunk=ring_chunk[i])
         for i, (name, cu, line, by_case) in enumerate(rows)]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -23,6 +23,12 @@ Ported so far:
   `quantize`, `WindowedReader`) and data-parallel training, one process a
   device, on a hierarchical `DeviceMesh` (`parallel.mesh`,
   `train.spmd.compile_train(mesh=...)`, `cross_worker_grad_sync`);
+- the named mesh (dp, fsdp, sp, tp, ep) on DTensor, with sequence
+  parallelism: ring attention running the flash kernels on chunk pairs and
+  Ulysses attention (`ops.ring_attention`);
+- world-size-agnostic sharded checkpoints of a whole `TrainState` in the
+  JAX package's format (`train.checkpoint`, `train.spmd.save_state_sharded`
+  and `restore_state_sharded`), restored in either package;
 - all three flash-attention kernels of the JAX package as hand-written
   sm_90a CUDA kernels behind one `torch.autograd.Function`
   (`ops.flash_attention`; forward `csrc/flash_fwd.cu`, backward dQ and

@@ -36,12 +36,13 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint, \
     create_selective_checkpoint_contexts
 
-from ray_tpu_torch.models.lm import cross_entropy, resolve_attn_impl, \
-    split_lm_batch, token_nll
+from ray_tpu_torch.models.lm import cross_entropy, matmul, \
+    resolve_attn_impl, split_lm_batch, token_nll
 from ray_tpu_torch.ops.flash_attention import on_local_shards
 from ray_tpu_torch.parallel.mesh import constrain, logical_to_spec, \
     with_current_mesh
 from ray_tpu_torch.utils.platform import default_device
+from ray_tpu_torch.utils.tree import nest as _nest
 
 Params = Dict[str, Any]  # nested dict of tensors
 
@@ -63,7 +64,8 @@ class GPT2Config:
     # products (JAX's dots_with_no_batch_dims_saveable); "dots_all" also
     # keeps the batched attention products (dots_saveable)
     remat_policy: str = "full"
-    # auto | dense | flash (the CUDA kernels K1-K3); ring/ulysses raise
+    # auto | dense | flash (the CUDA kernels K1-K3) | ring | ulysses (the
+    # sequence over the mesh's sp axis, ops.ring_attention)
     attn_impl: str = "auto"
     # chunked fused cross-entropy: unembed + CE per ce_chunk-token slice,
     # each slice recomputed in the backward pass, so the [B, T, V] logits
@@ -155,17 +157,6 @@ def param_specs(cfg: GPT2Config, rules=None) -> Params:
     """PartitionSpec tree for the params under the active (or given)
     rules."""
     return _specs(param_logical_axes(cfg), rules)
-
-
-def _nest(flat: Dict[str, Any]) -> Params:
-    out: Params = {}
-    for key, leaf in flat.items():
-        node = out
-        *parents, last = key.split("/")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[last] = leaf
-    return out
 
 
 def _flatten(params: Params, prefix: str = "") -> Dict[str, Any]:
@@ -261,7 +252,7 @@ def _layers(blocks: Params) -> List[Params]:
 
 
 def _qkv(x, p, cfg: GPT2Config):
-    qkv = x @ p["wqkv"].to(cfg.dtype) + p["bqkv"].to(cfg.dtype)
+    qkv = matmul(x, p["wqkv"].to(cfg.dtype)) + p["bqkv"].to(cfg.dtype)
     return qkv.split(cfg.d_model, dim=-1)
 
 
@@ -294,23 +285,35 @@ def _attention(x, p, cfg: GPT2Config):
                          "batch", "heads", "seq", None)
                for t in _qkv(x, p, cfg))
     impl = resolve_attn_impl(cfg.attn_impl, T, x.device)
+    if impl == "dense":
+        out = _dense(q, k, v, cfg.dtype)
+    else:
+        out = sharded_attention(impl, q, k, v)
+    out = out.transpose(1, 2).reshape(B, T, D)
+    return matmul(out, p["wo"].to(cfg.dtype)) + p["bo"].to(cfg.dtype)
+
+
+def sharded_attention(impl: str, q, k, v):
+    """Causal attention by the kernels: flash (K1-K3 on each rank's batch
+    and head shard), ring (K1-K3 on chunk pairs of a sequence shard) or
+    ulysses (all-to-all to whole sequences)."""
     if impl == "flash":
         from ray_tpu_torch.ops.flash_attention import flash_attention
 
-        out = flash_attention(q, k, v, True)
-    elif impl == "dense":
-        out = _dense(q, k, v, cfg.dtype)
-    else:
-        raise ValueError(f"unknown attn_impl {impl!r}")
-    out = out.transpose(1, 2).reshape(B, T, D)
-    return out @ p["wo"].to(cfg.dtype) + p["bo"].to(cfg.dtype)
+        return flash_attention(q, k, v, True)
+    if impl in ("ring", "ulysses"):
+        from ray_tpu_torch.ops import ring_attention
+
+        return getattr(ring_attention, f"{impl}_attention")(q, k, v,
+                                                            causal=True)
+    raise ValueError(f"unknown attn_impl {impl!r}")
 
 
 def _mlp(x, p, cfg: GPT2Config):
-    h = x @ p["wi"].to(cfg.dtype) + p["bi"].to(cfg.dtype)
+    h = matmul(x, p["wi"].to(cfg.dtype)) + p["bi"].to(cfg.dtype)
     h = constrain(h, "batch", "seq", "mlp")
     h = F.gelu(h, approximate="tanh")
-    return h @ p["wo"].to(cfg.dtype) + p["bo"].to(cfg.dtype)
+    return matmul(h, p["wo"].to(cfg.dtype)) + p["bo"].to(cfg.dtype)
 
 
 def _block(x, bp, cfg: GPT2Config):
@@ -335,8 +338,8 @@ def embed(params: Params, tokens: torch.Tensor, cfg: GPT2Config):
 def unembed(params: Params, x: torch.Tensor, cfg: GPT2Config):
     """final hidden [B,T,D] -> logits [B,T,vocab] (tied embeddings)."""
     x = _layer_norm(x, params["ln_f"])
-    return constrain(x @ params["wte"].T.to(cfg.dtype), "batch", "seq",
-                     "vocab")
+    return constrain(matmul(x, params["wte"].T.to(cfg.dtype)), "batch",
+                     "seq", "vocab")
 
 
 # aten products whose outputs a selective remat policy keeps: the x @ W

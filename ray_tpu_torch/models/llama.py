@@ -32,8 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.models import gpt2 as _gpt2
-from ray_tpu_torch.models.lm import cross_entropy, resolve_attn_impl, \
-    split_lm_batch
+from ray_tpu_torch.models.lm import cross_entropy, matmul, \
+    resolve_attn_impl, split_lm_batch
 from ray_tpu_torch.parallel.mesh import constrain
 from ray_tpu_torch.utils.platform import default_device
 
@@ -55,7 +55,7 @@ class LlamaConfig:
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
     remat: bool = True               # torch.utils.checkpoint around each block
-    attn_impl: str = "auto"          # auto | dense | flash; ring/ulysses raise
+    attn_impl: str = "auto"          # auto | dense | flash | ring | ulysses
 
     @property
     def head_dim(self) -> int:
@@ -123,15 +123,16 @@ def _init(generator: torch.Generator, cfg, shapes: Dict[str, tuple],
     moved to `device`: a CUDA generator fills a model too large for the
     host's memory directly on the card."""
     device = default_device(device)
+    # on the meta device (shapes only) nothing is drawn
+    src = device if device.type == "meta" else generator.device
     std = 0.02
     resid_std = std / math.sqrt(2 * cfg.n_layer)
     flat = {}
     for key, shape in shapes.items():
         if key.endswith("scale"):
-            t = torch.ones(shape, device=generator.device)
+            t = torch.ones(shape, device=src)
         else:
-            t = torch.randn(shape, generator=generator,
-                            device=generator.device)
+            t = torch.randn(shape, generator=generator, device=src)
             t.mul_(resid_std if key in resid else std)
         flat[key] = t.to(device=device, dtype=cfg.param_dtype)
     return _gpt2._nest(flat)
@@ -252,9 +253,9 @@ def attention(x, p, cfg):
     """Causal GQA with RoPE. x [B,T,D]; p has wq/wk/wv/wo."""
     B, T, D = x.shape
     H, KV, Dh = cfg.n_head, cfg.n_kv_head, cfg.head_dim
-    q = (x @ p["wq"].to(cfg.dtype)).reshape(B, T, H, Dh)
-    k = (x @ p["wk"].to(cfg.dtype)).reshape(B, T, KV, Dh)
-    v = (x @ p["wv"].to(cfg.dtype)).reshape(B, T, KV, Dh)
+    q = matmul(x, p["wq"].to(cfg.dtype)).reshape(B, T, H, Dh)
+    k = matmul(x, p["wk"].to(cfg.dtype)).reshape(B, T, KV, Dh)
+    v = matmul(x, p["wv"].to(cfg.dtype)).reshape(B, T, KV, Dh)
 
     cos, sin = rope_freqs(torch.arange(T, device=x.device), Dh,
                           cfg.rope_theta)
@@ -266,23 +267,19 @@ def attention(x, p, cfg):
     q, k, v = (constrain(t.transpose(1, 2), "batch", "heads", "seq", None)
                for t in (q, k, v))                        # [B, H, T, Dh]
     impl = resolve_attn_impl(cfg.attn_impl, T, x.device)
-    if impl == "flash":
-        from ray_tpu_torch.ops.flash_attention import flash_attention
-
-        out = flash_attention(q, k, v, True)
-    elif impl == "dense":
+    if impl == "dense":
         out = _gpt2._dense(q, k, v, cfg.dtype, dense_attention)
     else:
-        raise ValueError(f"unknown attn_impl {impl!r}")
+        out = _gpt2.sharded_attention(impl, q, k, v)
     out = out.transpose(1, 2).reshape(B, T, D)
-    return out @ p["wo"].to(cfg.dtype)
+    return matmul(out, p["wo"].to(cfg.dtype))
 
 
 def swiglu(x, p, cfg):
-    g = x @ p["wg"].to(cfg.dtype)
-    u = x @ p["wu"].to(cfg.dtype)
+    g = matmul(x, p["wg"].to(cfg.dtype))
+    u = matmul(x, p["wu"].to(cfg.dtype))
     h = constrain(F.silu(g) * u, "batch", "seq", "mlp")
-    return h @ p["wd"].to(cfg.dtype)
+    return matmul(h, p["wd"].to(cfg.dtype))
 
 
 def _block(x, bp, cfg: LlamaConfig):
@@ -312,7 +309,8 @@ def unembed(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     """final hidden [B,T,D] -> logits [B,T,vocab] (compute dtype)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["wte"].T if cfg.tie_embeddings else params["lm_head"]
-    return constrain(x @ head.to(cfg.dtype), "batch", "seq", "vocab")
+    return constrain(matmul(x, head.to(cfg.dtype)), "batch", "seq",
+                     "vocab")
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig

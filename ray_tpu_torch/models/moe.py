@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.models import gpt2 as _gpt2
 from ray_tpu_torch.models import llama as _llama
-from ray_tpu_torch.models.lm import cross_entropy, split_lm_batch
+from ray_tpu_torch.models.lm import cross_entropy, matmul, split_lm_batch
 from ray_tpu_torch.parallel.mesh import constrain
 
 Params = Dict[str, Any]  # nested dict of tensors
@@ -138,7 +138,7 @@ def expert_capacity(cfg: MoEConfig, n_tokens: int) -> int:
 def route(x, p, cfg: MoEConfig):
     """The router, in f32: (logits [B,T,E], probs [B,T,E], gate_vals
     [B,T,K] renormalised to sum to 1, gate_idx [B,T,K])."""
-    logits = x.float() @ p["router"].float()
+    logits = matmul(x.float(), p["router"].float())
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, cfg.experts_per_token, dim=-1)
     gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
@@ -161,6 +161,10 @@ def moe_layer(x, p, cfg: MoEConfig):
     B, T, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     C = expert_capacity(cfg, T)
+    # on a mesh with sp the sequence is gathered first: the queues run over
+    # each row's whole sequence, and DTensor cannot flatten a sharded
+    # sequence into the slot-major order (the output is sharded again)
+    x = constrain(x, "batch", None, "embed")
     logits, probs, gate_vals, gate_idx = route(x, p, cfg)
 
     assign = _one_hot(gate_idx, E)                              # [B,T,K,E]

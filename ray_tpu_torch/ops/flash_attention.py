@@ -410,7 +410,6 @@ def on_local_shards(fn, q, k, v):
     (dim 0) and heads (dim 1) only: attention is independent per (batch
     row, head). Returns out as a DTensor with that placement."""
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
 
     placements = tuple(q.placements)
     bad = [p for p in placements
@@ -419,11 +418,22 @@ def on_local_shards(fn, q, k, v):
     if bad:
         raise ValueError(
             f"sharded flash attention splits batch and heads only, got "
-            f"{placements}; a sequence shard (sp) needs ring attention "
-            f"(ROADMAP item 10)")
+            f"{placements}; a sequence shard (sp) needs "
+            f'attn_impl="ring" or "ulysses" (ops.ring_attention)')
+    return map_local_shards(fn, q, k, v)
+
+
+def map_local_shards(fn, q, k, v):
+    """fn(q, k, v) -> out through `local_map` on the local shards of DTensor
+    q, k, v (one placement for all three, out placed as q), each input's
+    gradient handed back contiguous."""
+    from torch.distributed.tensor.experimental import local_map
+
+    placements = tuple(q.placements)
     if any(tuple(t.placements) != placements for t in (k, v)):
         raise ValueError(f"q, k, v placements differ: {placements}, "
                          f"{k.placements}, {v.placements}")
+
     def local(q, k, v):
         return fn(*(_ContiguousGrad.apply(t) for t in (q, k, v)))
 

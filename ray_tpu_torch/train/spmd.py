@@ -25,7 +25,14 @@ Several devices run one process a device, in one of two ways:
   `util.collective.hierarchy` (reduce-scatter inside a host, allreduce of
   the shard across hosts, optionally int8/fp8 with error feedback,
   all-gather back) before the optimizer runs.
-Sequence and pipeline axes (sp, pp) are ROADMAP items 10 and 11.
+A mesh with sp shards the activations' sequence axis (the models'
+`constrain(..., "seq", ...)` points; attention runs as ring or Ulysses
+attention, `ops.ring_attention`); the pipeline axis (pp) is ROADMAP item 11.
+
+`save_state_sharded` and `restore_state_sharded` write and read a whole
+`TrainState` in the JAX package's sharded-checkpoint format
+(`train.checkpoint`), with the JAX package's leaf keys, so a state saved by
+either package, at any world size and on any mesh, restores in the other.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ from ray_tpu_torch.parallel import mesh as mesh_lib
 from ray_tpu_torch.util.collective.hierarchy import (hier_grad_sync,
                                                      hier_phase_programs)
 from ray_tpu_torch.utils.platform import default_device
-from ray_tpu_torch.utils.tree import Tree, leaves as _leaves
+from ray_tpu_torch.utils.tree import Tree, leaves as _leaves, nest
 from ray_tpu_torch.utils.tree import tree_map as _tree_map
 
 
@@ -247,6 +254,9 @@ class CompiledTrain:
     # TrainState of mesh.Sharding, see state_shardings)
     batch_sharding: Any = None
     state_sharding: Any = None
+    # () -> the TrainState's leaves as meta tensors (shapes and dtypes, no
+    # data): the template `restore_state_sharded` restores into
+    abstract_state: Optional[Callable[[], TrainState]] = None
 
 
 def _one_device(mesh, device) -> torch.device:
@@ -256,9 +266,8 @@ def _one_device(mesh, device) -> torch.device:
             raise NotImplementedError(
                 "training on several devices in one process is not ported: "
                 "the port runs one process a device, on a "
-                "parallel.mesh.build_mesh mesh (dp, fsdp, tp, ep) or "
-                "build_hierarchical_mesh; sp and pp meshes are ROADMAP items "
-                "10 and 11")
+                "parallel.mesh.build_mesh mesh (dp, fsdp, sp, tp, ep) or "
+                "build_hierarchical_mesh; pp meshes are ROADMAP item 11")
         device = device if device is not None else devs[0]
     return default_device(device)
 
@@ -275,11 +284,10 @@ class _Sharded:
     placements (the reduction GSPMD inserts)."""
 
     def __init__(self, mesh):
-        for axis, item in (("sp", 10), ("pp", 11)):
-            if axis in mesh_lib.mesh_axes(mesh):
-                raise NotImplementedError(
-                    f"a mesh with {axis} > 1 is ROADMAP item {item}; "
-                    f"build_mesh meshes of dp, fsdp, tp and ep train here")
+        if "pp" in mesh_lib.mesh_axes(mesh):
+            raise NotImplementedError(
+                "a mesh with pp > 1 is ROADMAP item 11; build_mesh meshes "
+                "of dp, fsdp, sp, tp and ep train here")
         self.mesh = mesh
         self.batch_sharding = mesh_lib.Sharding(
             mesh, mesh_lib.spec_to_placements(mesh, mesh_lib.P(("dp",
@@ -491,6 +499,11 @@ def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
             dp.layout(params)
         return TrainState(0, params, optimizer.init(params))
 
+    def abstract_state() -> TrainState:
+        with torch.device("meta"):
+            params = init_params_fn(torch.Generator(), device="meta")
+        return TrainState(0, params, optimizer.init(params))
+
     def local_grads(state: TrainState, batch) -> tuple:
         if sharded is not None:
             return sharded.grads(loss_fn, state, batch)
@@ -531,7 +544,8 @@ def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
                              TrainState(0, meta, optimizer.init(meta)),
                              params_spec, mesh))
         return CompiledTrain(device=device, init_fn=init_fn, step_fn=step_fn,
-                             grad_fn=local_grads, apply_fn=apply_fn, **extra)
+                             grad_fn=local_grads, apply_fn=apply_fn,
+                             abstract_state=abstract_state, **extra)
 
     dp = _DataParallel(mesh, grad_quantize, device)
 
@@ -582,7 +596,132 @@ def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
         apply_fn=apply_fn, mesh=mesh, topology=dp.topo,
         grad_quantize=grad_quantize, sync_fn=sync_fn,
         init_ef_fn=init_ef_fn if dp.ef else None,
-        timed_step_fn=timed_step_fn if phase_timing else None)
+        timed_step_fn=timed_step_fn if phase_timing else None,
+        abstract_state=abstract_state)
+
+
+# ---------------------------------------------------------------------------
+# World-size-agnostic state checkpoints
+#
+# save: every process writes the chunks it holds, with global index windows
+# in the manifest (train/checkpoint.py save_sharded). restore: the leaves
+# are gathered on the host (or streamed window by window) and placed under
+# the program's state shardings, so a checkpoint saved at world size 4
+# restores at 2, 1, or back at 4, bit for bit.
+# ---------------------------------------------------------------------------
+
+# the two leaves that carry AdamWState.count: optax's ScaleByAdamState count
+# and its schedule's count (equal: both count the updates)
+_COUNT_KEYS = ("opt_state/1/0/.count", "opt_state/1/2/.count")
+
+
+def _state_as_tree(state: TrainState) -> dict:
+    """The state as the JAX package's tree of it, so leaf keys are its
+    path strings: ``step``, ``params/<path>``, and optax's
+    ``chain(clip_by_global_norm, adamw)`` state ``opt_state/1/0/.count``,
+    ``opt_state/1/0/.mu/<path>``, ``opt_state/1/0/.nu/<path>`` and
+    ``opt_state/1/2/.count`` (the clip and the weight decay keep no
+    leaves)."""
+    opt = state.opt_state
+    return {"step": state.step, "params": state.params,
+            "opt_state": {"1": {"0": {".count": opt.count, ".mu": opt.mu,
+                                      ".nu": opt.nu},
+                                "2": {".count": opt.count}}}}
+
+
+def save_state_sharded(state: TrainState, path: str, *,
+                       world_size: int = 1, process_index: int = 0) -> str:
+    """Write `state` as a sharded checkpoint (every rank of a mesh calls it
+    with its own `process_index`; each writes its own shards). The step
+    and both counts are int32 scalars, as the JAX package writes them."""
+    from ray_tpu_torch.train import checkpoint as ckpt_lib
+
+    opt = state.opt_state
+    count = np.int32(opt.count)
+    tree = _state_as_tree(TrainState(
+        np.int32(state.step), state.params,
+        dataclasses.replace(opt, count=count)))
+    return ckpt_lib.save_sharded(tree, path, step=int(state.step),
+                                 world_size=world_size,
+                                 process_index=process_index)
+
+
+def restore_state_sharded(path: str, compiled: CompiledTrain, *,
+                          stream_chunk_bytes: Optional[int] = None,
+                          stream_in_flight: int = 2) -> TrainState:
+    """Restore a `save_state_sharded` checkpoint (of either package) onto
+    `compiled`: under `compiled.state_sharding` on a `build_mesh` mesh,
+    which may differ in shape and size from the mesh it was saved on, each
+    rank taking only its own index window (`collective.reshard`); else onto
+    `compiled.device`. A leaf whose type differs from the program's is
+    cast to it; bf16 bits are never cast on the way.
+
+    With `stream_chunk_bytes` set the restore STREAMS instead of
+    gathering: each leaf is opened lazily (`checkpoint.open_sharded`) and
+    read window by window (`collective.reshard_streaming`), so peak host
+    memory is about `stream_in_flight * stream_chunk_bytes` rather than the
+    model size. Bitwise-identical to the gathering path."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.train import checkpoint as ckpt_lib
+    from ray_tpu_torch.util.collective.reshard import (
+        reshard, reshard_streaming, stream_window)
+
+    stream = stream_chunk_bytes is not None
+    flat, manifest = (ckpt_lib.open_sharded(path) if stream
+                      else ckpt_lib.load_sharded(path))
+    template = ckpt_lib._flatten_with_path(
+        _state_as_tree(compiled.abstract_state()))
+    shardings = {}
+    if compiled.state_sharding is not None:
+        shardings = {ckpt_lib._leaf_key(kp): s for kp, s in
+                     ckpt_lib._flatten_with_path(
+                         _state_as_tree(compiled.state_sharding))}
+
+    def as_leaf(t: torch.Tensor, saved: str, want) -> torch.Tensor:
+        if saved == "bfloat16":
+            t = t.view(torch.bfloat16)
+        return t.to(want)
+
+    restored = {}
+    for kp, leaf in template:
+        key = ckpt_lib._leaf_key(kp)
+        if key not in flat:
+            raise KeyError(f"checkpoint {path} has no leaf {key!r}")
+        arr, saved = flat[key], manifest["params"][key]["dtype"]
+        shape = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"leaf {key}: checkpoint shape "
+                             f"{tuple(arr.shape)} != program shape {shape}")
+        if not isinstance(leaf, torch.Tensor):    # the step and the counts
+            restored[key] = int(np.asarray(arr.read(()) if stream else arr))
+        elif stream and key in shardings:
+            d = reshard_streaming(arr, shardings[key],
+                                  chunk_bytes=stream_chunk_bytes,
+                                  max_in_flight=stream_in_flight)
+            restored[key] = DTensor.from_local(
+                as_leaf(d.to_local(), saved, leaf.dtype), d.device_mesh,
+                d.placements, shape=d.shape, stride=d.stride())
+        elif stream:
+            restored[key] = as_leaf(stream_window(
+                arr, tuple((0, n) for n in shape), compiled.device,
+                chunk_bytes=stream_chunk_bytes,
+                max_in_flight=stream_in_flight), saved, leaf.dtype)
+        else:
+            t = as_leaf(torch.from_numpy(np.ascontiguousarray(arr)), saved,
+                        leaf.dtype)
+            restored[key] = (reshard(t, shardings[key]) if key in shardings
+                             else t.to(compiled.device))
+    counts = {restored.pop(k) for k in _COUNT_KEYS}
+    if len(counts) != 1:
+        raise ValueError(f"checkpoint {path}: the optimizer's counts "
+                         f"{_COUNT_KEYS} differ ({sorted(counts)}); the "
+                         f"port keeps one")
+    tree = nest(restored)
+    return TrainState(step=tree["step"], params=tree["params"],
+                      opt_state=AdamWState(counts.pop(),
+                                           tree["opt_state"]["1"]["0"][".mu"],
+                                           tree["opt_state"]["1"]["0"][".nu"]))
 
 
 def cross_worker_grad_sync(grads: Tree, group_name: str, world_size: int,

@@ -97,6 +97,13 @@ class Comm:
         self.pg._allgather_base(self._check(out), self._check(inp)).wait()
         return out
 
+    def all_to_all(self, out: torch.Tensor, inp: torch.Tensor):
+        """`inp` ([size, ...]): row j goes to rank j; `out` (the same
+        shape) gets rank i's row in row i."""
+        self.pg.alltoall_base(self._check(out), self._check(inp), [], [],
+                              dist.AllToAllOptions()).wait()
+        return out
+
     def broadcast(self, t: torch.Tensor, root: int):
         opts = dist.BroadcastOptions()
         opts.rootRank, opts.rootTensor = root, 0

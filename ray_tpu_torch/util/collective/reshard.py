@@ -135,32 +135,42 @@ def reshard_streaming(src: Any, dst_sharding, *, chunk_bytes: int,
     size. Chunks are copied into their rows of the shard on the device:
     the result is bitwise-equal to `reshard` of the same data. `out_dtype`
     converts per chunk."""
+    reader = src if hasattr(src, "read") else _HostReader(np.asarray(src))
+    shape = tuple(int(n) for n in reader.shape)
+    mesh, placements = dst_sharding
+    win = tuple((s.start, s.stop)
+                for s in mesh_lib.local_window(shape, mesh, placements))
+    local = stream_window(reader, win, _mesh_device(mesh),
+                          chunk_bytes=chunk_bytes,
+                          max_in_flight=max_in_flight, out_dtype=out_dtype)
+    return _from_window(local, shape, dst_sharding)
+
+
+def stream_window(reader, window, device, *, chunk_bytes: int,
+                  max_in_flight: int = 2, out_dtype=None) -> torch.Tensor:
+    """The global index `window` ((start, stop) a dim) of `reader` as a
+    tensor on `device`, read in row chunks of at most `chunk_bytes` with a
+    `max_in_flight`-deep prefetch (`reshard_streaming`'s schedule, which
+    records its stats in `last_stream_stats`)."""
     if chunk_bytes <= 0:
         raise ValueError("chunk_bytes must be positive")
     max_in_flight = max(1, int(max_in_flight))
-    reader = src if hasattr(src, "read") else _HostReader(np.asarray(src))
-    shape = tuple(int(n) for n in reader.shape)
     dtype = np.dtype(out_dtype) if out_dtype is not None else np.dtype(
         reader.dtype)
-    mesh, placements = dst_sharding
-    device = _mesh_device(mesh)
-    if not shape:
+    if not window:
         a = np.asarray(reader.read(()), np.dtype(reader.dtype)).astype(
             dtype, copy=False).reshape(())
         last_stream_stats.clear()
         last_stream_stats.update(peak_host_bytes=a.nbytes, chunks=1,
                                  windows=1)
-        return _from_window(torch.from_numpy(a.copy()).to(device), shape,
-                            dst_sharding)
+        return torch.from_numpy(a.copy()).to(device)
 
-    win = [(s.start, s.stop) for s in
-           mesh_lib.local_window(shape, mesh, placements)]
-    (w0, w1), trailing = win[0], tuple(win[1:])
+    (w0, w1), trailing = window[0], tuple(window[1:])
     row_bytes = dtype.itemsize * int(np.prod([b - a for a, b in trailing]))
     rows_per = max(1, chunk_bytes // max(1, row_bytes))
     tasks = [((r0, min(r0 + rows_per, w1)),) + trailing
              for r0 in range(w0, w1, rows_per)]
-    out = torch.empty([b - a for a, b in win],
+    out = torch.empty([b - a for a, b in window],
                       dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
                       device=device)
 
@@ -201,7 +211,7 @@ def reshard_streaming(src: Any, dst_sharding, *, chunk_bytes: int,
             _fill()
     last_stream_stats.clear()
     last_stream_stats.update(stats)
-    return _from_window(out, shape, dst_sharding)
+    return out
 
 
 def reshard_tree(tree: Any, dst_shardings: Any, *,
@@ -228,5 +238,5 @@ class _HostReader:
         return self._arr[tuple(slice(a, b) for a, b in window)]
 
 
-__all__ = ["reshard", "reshard_streaming", "reshard_tree",
+__all__ = ["reshard", "reshard_streaming", "stream_window", "reshard_tree",
            "WindowedReader", "last_stream_stats"]

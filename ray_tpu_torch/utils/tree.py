@@ -4,7 +4,7 @@ dict and `ravel_pytree`'s for a flat vector."""
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Dict
 
 Tree = Any  # nested dict of tensors, as the models' params
 
@@ -21,3 +21,15 @@ def tree_map(fn: Callable, tree: Tree) -> Tree:
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
     return fn(tree)
+
+
+def nest(flat: Dict[str, Any]) -> Tree:
+    """Path-keyed leaves ("blocks/attn/wo") -> nested dicts."""
+    out: dict = {}
+    for key, leaf in flat.items():
+        node = out
+        *parents, last = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return out

@@ -477,17 +477,20 @@ def sharded_state(mod, cfg, flat, mesh, opt, device="cpu"):
     return spmd.TrainState(0, params, opt.init(params))
 
 
-def mesh_trajectory(name, config, inp, steps=4, device="cpu", comm=None):
+def mesh_trajectory(name, config, inp, steps=4, device="cpu", comm=None,
+                    attn_impl="dense", seen=None, calls=None):
     """`steps` steps of family `name` through compile_model_train on
     build_mesh(config), from the numpy weights inp["w/<name>/..."]:
     ([(loss, grad_norm, step)], gathered final params). With `comm` a
-    dict, step 2's collective counts by kind (CommDebugMode) go into it."""
+    dict, step 2's collective counts by kind (CommDebugMode) go into it;
+    with `seen` (the Counter `_count_plain` fills), step 2's plain kernel
+    calls go into the dict `calls`."""
     from torch.distributed.tensor.debug import CommDebugMode
 
     from ray_tpu_torch.parallel.mesh import build_mesh
     from ray_tpu_torch.train import spmd
 
-    mod, cfg = family(name, attn_impl="dense")
+    mod, cfg = family(name, attn_impl=attn_impl)
     mesh = build_mesh(config, device_type=device)
     opt = spmd.default_optimizer(lr=1e-3, warmup=2, total_steps=20)
     train = spmd.compile_model_train(mod, cfg, mesh=mesh, optimizer=opt,
@@ -504,6 +507,10 @@ def mesh_trajectory(name, config, inp, steps=4, device="cpu", comm=None):
                 state, m = train.step_fn(state, batch)
             comm.update({str(k).rsplit(".", 1)[-1]: v for k, v in
                          mode.get_comm_counts().items()})
+        elif seen is not None and i == 1:
+            seen.clear()
+            state, m = train.step_fn(state, batch)
+            calls.update(seen)
         else:
             state, m = train.step_fn(state, batch)
         hist.append((float(m["loss"]), float(m["grad_norm"]), m["step"]))
@@ -741,5 +748,198 @@ def mesh_cards(rank, world, tmp):
              fa.flash_attention_bwd_dkv.launches)
     out["bf16"] = (tuple(a - b for a, b in zip(after, before)),
                    float(m["loss"]), float(m["grad_norm"]))
+    dist.destroy_process_group()
+    return out
+
+
+# ------------------------------------------ sequence parallel (ring, Ulysses)
+def _count_plain():
+    """Wrap the flash kernels' plain versions with call counters (the CPU
+    path counts no launches): returns the Counter they fill."""
+    import collections
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    seen = collections.Counter()
+    for name in ("flash_attention_reference", "_bwd_dq_reference",
+                 "_bwd_dkv_reference"):
+        orig = getattr(fa, name)
+
+        def spy(*a, _orig=orig, _name=name, **kw):
+            seen[_name] += 1
+            return _orig(*a, **kw)
+        setattr(fa, name, spy)
+    return seen
+
+
+def ring_ranks(rank, world, tmp, cases):
+    """Each case (impl, mesh config, causal): ring or Ulysses attention on
+    DTensors of the seeded q, k, v sharded (batch, heads, seq, None), its
+    gradients against dO, the bytes accounted and the plain kernels'
+    calls on this rank. Then the shape contract on the first case's mesh:
+    what each out-of-contract call raised."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from ray_tpu_torch.ops import ring_attention as R
+    from ray_tpu_torch.parallel.mesh import (build_mesh, logical_to_spec,
+                                             spec_to_placements, use_mesh)
+    from ray_tpu_torch.util.collective import hierarchy as H
+
+    inp = _inputs(tmp)
+    _default_group(rank, world, tmp)
+    seen = _count_plain()
+    out = {}
+    for impl, config, causal in cases:
+        mesh = build_mesh(config, device_type="cpu")
+        placements = spec_to_placements(
+            mesh, logical_to_spec("batch", "heads", "seq", None))
+        q, k, v, do = (distribute_tensor(torch.from_numpy(inp[n]), mesh,
+                                         placements)
+                       for n in ("q", "k", "v", "do"))
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        H.BYTES.clear()
+        seen.clear()
+        with use_mesh(mesh):
+            o = getattr(R, f"{impl}_attention")(q, k, v, causal=causal)
+        grads = torch.autograd.grad(o, (q, k, v), do)
+        out[(impl, tuple(sorted(config.items())), causal)] = dict(
+            out=o.full_tensor().detach(),
+            grads=[g.full_tensor() for g in grads], bytes=dict(H.BYTES),
+            calls=dict(seen), sp_rank=mesh.get_group("sp").rank())
+    mesh = build_mesh(cases[0][1], device_type="cpu")
+    sp = cases[0][1]["sp"]
+    raised = []
+    for T, Dh in ((200 * sp, 32), (32 * sp, 48)):   # chunks of 200; Dh 48
+        q = torch.zeros(2, 4, T, Dh)
+        try:
+            with use_mesh(mesh):
+                R.ring_attention(q, q, q)
+            raised.append(None)
+        except ValueError as e:
+            raised.append(str(e))
+    out["contract"] = raised
+    dist.destroy_process_group()
+    return out
+
+
+def sp_trajectory_ranks(rank, world, tmp, runs):
+    """Each (name, mesh config, attn_impl) of `runs` as a 3-step
+    trajectory from the numpy weights inp["w/<name>/..."]; with the plain
+    kernels' calls in step 2 counted on this rank."""
+    import torch.distributed as dist
+
+    inp = _inputs(tmp)
+    _default_group(rank, world, tmp)
+    seen = _count_plain()
+    out = {}
+    for name, config, impl in runs:
+        calls = {}
+        hist, params = mesh_trajectory(name, config, inp, steps=3,
+                                       attn_impl=impl, seen=seen,
+                                       calls=calls)
+        out[(name, tuple(sorted(config.items())), impl)] = (
+            hist, params if rank == 0 else None, calls)
+    dist.destroy_process_group()
+    return out
+
+
+# ------------------------------------------------------------- checkpoints
+def state_numpy(state) -> dict:
+    """{leaf key: numpy copy} of a TrainState as `save_state_sharded` keys
+    it, DTensors gathered (a collective: every rank calls it). A copy: the
+    step updates the state in place, and a replicated DTensor's
+    full_tensor is its local tensor."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.train import spmd
+    from ray_tpu_torch.train.checkpoint import (_flatten_with_path, _host,
+                                               _leaf_key)
+
+    out = {}
+    for kp, leaf in _flatten_with_path(spmd._state_as_tree(state)):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
+        out[_leaf_key(kp)] = (_host(leaf).copy()      # bf16 as its bits
+                              if isinstance(leaf, torch.Tensor)
+                              else np.int32(leaf))
+    return out
+
+
+def _ckpt_train(config, impl="dense", device="cpu"):
+    """gpt2-tiny's program on build_mesh(config) (one device for None)."""
+    from ray_tpu_torch.parallel.mesh import build_mesh
+    from ray_tpu_torch.train import spmd
+
+    mod, cfg = family("gpt2", attn_impl=impl)
+    mesh = build_mesh(config, device_type=device) if config else None
+    opt = spmd.default_optimizer(lr=1e-3, warmup=2, total_steps=20)
+    return spmd.compile_model_train(mod, cfg, mesh=mesh, optimizer=opt,
+                                    device=device)
+
+
+def _steps(train, state, tokens, n):
+    losses = []
+    for _ in range(n):
+        state, m = train.step_fn(state, {"tokens": tokens})
+        losses.append(float(m["loss"]))
+    return state, losses
+
+
+def checkpoint_ranks(rank, world, tmp):
+    """Two ranks:
+    - the JAX package's checkpoint in tmp/jax restored on fsdp=2,
+      gathering and streaming;
+    - gpt2-tiny on fsdp=2: 2 steps, saved to tmp/port-fsdp (both ranks),
+      then the unbroken 3rd step against a restore, gathering and
+      streaming, and its 3rd step;
+    - on sp=2 (ring attention): 2 steps, saved to tmp/port-sp;
+    - 2 -> 1 -> 2: rank 0 restores tmp/port-fsdp onto one device and saves
+      it at world 1 to tmp/port-one; both ranks restore that on tp=2."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.train import spmd
+
+    inp = _inputs(tmp)
+    tokens = inp["tokens"]
+    _default_group(rank, world, tmp)
+    out = {}
+    train = _ckpt_train({"fsdp": 2})
+    out["jax"] = [state_numpy(spmd.restore_state_sharded(
+        os.path.join(tmp, "jax"), train, **kw))
+        for kw in ({}, {"stream_chunk_bytes": 4096})]
+
+    state = train.init_fn(torch.Generator().manual_seed(0))
+    state, losses = _steps(train, state, tokens, 2)
+    path = os.path.join(tmp, "port-fsdp")
+    spmd.save_state_sharded(state, path, world_size=world,
+                            process_index=rank)
+    out["fsdp_saved"] = state_numpy(state)
+    state, last = _steps(train, state, tokens, 1)
+    out["fsdp_unbroken"] = (losses + last, state_numpy(state))
+    dist.barrier()
+    resumed = []
+    for kw in ({}, {"stream_chunk_bytes": 1024, "stream_in_flight": 3}):
+        got = spmd.restore_state_sharded(path, train, **kw)
+        restored = state_numpy(got)
+        got, loss = _steps(train, got, tokens, 1)
+        resumed.append((restored, loss, state_numpy(got)))
+    out["fsdp_resumed"] = resumed
+
+    sp_train = _ckpt_train({"sp": 2}, impl="auto")
+    state = sp_train.init_fn(torch.Generator().manual_seed(0))
+    state, out["sp_losses"] = _steps(sp_train, state, tokens, 2)
+    spmd.save_state_sharded(state, os.path.join(tmp, "port-sp"),
+                            world_size=world, process_index=rank)
+    out["sp_saved"] = state_numpy(state)
+
+    one = os.path.join(tmp, "port-one")
+    if rank == 0:
+        single = _ckpt_train(None)
+        spmd.save_state_sharded(spmd.restore_state_sharded(path, single),
+                                one)
+    dist.barrier()
+    out["two_one_two"] = state_numpy(spmd.restore_state_sharded(
+        one, _ckpt_train({"tp": 2})))
     dist.destroy_process_group()
     return out

@@ -541,3 +541,20 @@ def test_mesh_across_cards(cuda, tmp_path):
     paths = chip_smoke.mesh_pair(chip_smoke.gpu_line(),
                                  str(tmp_path / "pair"), "nccl")
     print(f"[mesh across cards] full width, rank 0's launches: {paths}")
+
+
+@pytest.mark.cuda
+def test_sp_across_cards(cuda, tmp_path):
+    # two ranks, one card each, over NCCL (chip_smoke.sp_pair): GPT-2-125M
+    # at full width, global B=8 T=1024, on sp=2 with ring and with Ulysses
+    # attention, and tinyllama-1.1b at B=2 T=2048 on sp=2 with ring, each
+    # within 0.01 loss and 2 % grad norm of one process on one card (flash),
+    # with exact K1/K2/K3 launches a rank (sp rank r runs the ring's r + 1
+    # live chunk pairs a layer; Ulysses runs none); then the GPT-2 ring
+    # run's state, saved by both ranks, restores bit-equal on one card
+    import chip_smoke
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: NCCL refuses two ranks on one")
+    paths = chip_smoke.sp_pair(chip_smoke.gpu_line(), str(tmp_path))
+    print(f"[sp across cards] K1/K2/K3 launches by rank: {paths}")

@@ -230,9 +230,10 @@ def test_value_errors_as_jax_raises(world1):
     state, m = train.step_fn(train.init_fn(torch.Generator()),
                              {"x": np.ones((2, 8), np.float32)})
     assert float(m["loss"]) == 0.0 and state.step == 1
-    seq = DeviceMesh("cpu", torch.arange(1), mesh_dim_names=("sp",))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _linear_train(seq, params_spec={"w": PM.P()})
+    # sp trains on a build_mesh mesh (ring attention); pp is refused
+    pipe = DeviceMesh("cpu", torch.arange(1), mesh_dim_names=("pp",))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        _linear_train(pipe, params_spec={"w": PM.P()})
 
 
 def test_batch_rows_split_evenly():

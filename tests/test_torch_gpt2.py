@@ -137,9 +137,23 @@ def test_resolve_attn_impl_rules():
     assert PL.resolve_attn_impl("auto", 1024, gpu) == "flash"
     assert PL.resolve_attn_impl("auto", 1000, gpu) == "dense"
     assert PL.resolve_attn_impl("flash", 64, cpu) == "flash"
+    # the JAX rule: auto is ring wherever the current mesh shards the
+    # sequence (sp > 1), before the device rule; named impls pass through
+    import types
+
+    from ray_tpu_torch.parallel import mesh as PM
+
     for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError):
-            PL.resolve_attn_impl(impl, 1024, gpu)
+        assert PL.resolve_attn_impl(impl, 1024, gpu) == impl
+    for names, sizes, want in ((("dp", "sp"), (2, 2), ("ring", "ring")),
+                               (("sp",), (4,), ("ring", "ring")),
+                               (("dp", "tp"), (2, 2), ("flash", "dense"))):
+        mesh = types.SimpleNamespace(mesh_dim_names=names,
+                                     size=lambda i, s=sizes: s[i])
+        with PM.use_mesh(mesh):
+            assert (PL.resolve_attn_impl("auto", 1024, gpu),
+                    PL.resolve_attn_impl("auto", 1024, cpu)) == want
+    assert PL.resolve_attn_impl("auto", 1024, gpu) == "flash"
 
 
 def _cache(B, T, seed):
