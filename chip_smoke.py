@@ -86,20 +86,36 @@ Phases, each reported on its own line:
 11. checkpoints (phase_checkpoint): GPT-2-125M's whole TrainState after 2
    steps of phase 6's configuration saved and restored, gathering and
    streaming: bit-equal leaves and a resumed step bit-equal to the
-   unbroken run's, MB written and ms.
-Across two cards, tests/test_torch_cuda.py::test_sp_across_cards runs
+   unbroken run's, MB written and ms;
+12. the GPipe pipeline (phase_pipeline): GPT-2-125M at phase 6's
+   configuration through compile_pipeline_train on 4 virtual stages of the
+   card (the schedule the ranks run, driven in one process) with 8
+   microbatches, 5 steps against compile_model_train on one device: loss
+   within 0.01 and grad norm within 2 % at every step, K1/K2/K3 launches
+   exactly as the schedule gives them (stated before the run), step ms,
+   MFU, peak memory and a profiled step.
+Phase 10 also runs the ring at a ragged chunk (Llama-3-8B widths,
+T=16000 on sp=4: chunks of 4000 padded to 4096, the padded keys masked by
+K1's and K2's kv_len) and holds each padded chunk pair against the plain
+versions; phase 2 also holds the kernels at a head dim of 80, which the
+wrapper pads to 128.
+Across cards, tests/test_torch_cuda.py::test_pp_across_cards runs
+`pp_cards`: GPT-2-125M on pp=2 over NCCL on two cards against one process,
+and Llama-3-8B at full width on pp=4 over four against one card's no-grad
+loss. Across two cards, tests/test_torch_cuda.py::test_sp_across_cards runs
 `sp_pair`: GPT-2-125M on sp=2 with ring and Ulysses and tinyllama-1.1b with
 ring over NCCL against one process, and the sp=2 checkpoint on one card.
 Phase 2 also holds the kernels at the Llama paths' shapes (tinyllama's
 training, llama3-8b's forward, K/V expanded from the KV heads) and times
 that expansion. Phases 4-5 (GPT-2 inference), 5b (the OpenAI server), 6
 (GPT-2 training), 6b's (b) (data-parallel training), 6c's (a) and (c)
-(sharded training), 7, 8, 9, each case of 10, and 11 are the main paths:
-every kernel's launch count is set to 0 before each and read right after.
-The line before the last lists the kernels as JSON, with the GPT-2
+(sharded training), 7, 8, 9, each case of 10, 11 and 12 are the main
+paths: every kernel's launch count is set to 0 before each and read right
+after. The line before the last lists the kernels as JSON, with the GPT-2
 training path's counts under "launches", every path's under
-"launches_by_path" and the ring's non-causal chunk pair under
-"ring_chunk"; the last line is {"ok": true, "device": {...}}.
+"launches_by_path", the ring's non-causal chunk pair under "ring_chunk",
+its ragged one under "ring_ragged_chunk" and the head dim 80 case under
+"head_dim_80"; the last line is {"ok": true, "device": {...}}.
 Any failure raises and the script exits non-zero without that line. Needs
 one CUDA card; imports nothing of JAX.
 
@@ -144,6 +160,7 @@ from ray_tpu_torch.train import checkpoint as ckpt_lib
 from ray_tpu_torch.train import spmd
 from ray_tpu_torch.util import collective as col
 from ray_tpu_torch.util.collective._comm import HOST_STAGED
+from ray_tpu_torch.util.collective.hierarchy import BYTES as hier_bytes
 from ray_tpu_torch.util.collective.hierarchy import Topology, hier_grad_sync
 from ray_tpu_torch.util.collective.quantize import QuantizedAllreduce
 
@@ -321,8 +338,12 @@ GLOO_OPS = {"all_gather": "Shard -> Replicate",
 # 4x from the KV heads as llama.expand_kv does (chunks of 4096), and
 # GPT-2-125M's training shape (QKV views, chunks of 512). The first case's
 # non-causal chunk pair fills the kernels line's "ring_chunk" records.
+# The third case is ragged: chunks of 4000 positions, padded to 4096 on
+# each rank with K1's and K2's kv_len masking the padded keys; its
+# non-causal chunk pair fills "ring_ragged_chunk".
 RING_CASES = (("llama3-8b-long", 1, 32, 8, 16384, 128, 4),
-              ("gpt2-125m-train", 24, 12, 12, 1024, 64, 2))
+              ("gpt2-125m-train", 24, 12, 12, 1024, 64, 2),
+              ("llama3-8b-ragged", 1, 32, 8, 16000, 128, 4))
 # phase_checkpoint: phase 6's configuration, CKPT_STEPS steps, then the
 # whole TrainState saved and restored gathering and streaming (CKPT_CHUNK
 # bytes a chunk)
@@ -339,6 +360,26 @@ SP_RUNS = (("gpt2 sp=2 ring", "gpt2", {"sp": 2}, 3, "ring"),
            ("gpt2 sp=2 ulysses", "gpt2", {"sp": 2}, 3, "ulysses"),
            ("tinyllama sp=2 ring", "llama", {"sp": 2}, 2, "ring"))
 
+# phase_pipeline: GPT-2-125M at phase 6's configuration (B=TRAIN_B, T=SEQ,
+# remat "dots", flash) through compile_pipeline_train on PIPE_F virtual
+# stages of one card with PIPE_M microbatches, PIPE_STEPS steps (the last
+# one profiled), against compile_model_train on one device from the same
+# init and batch
+PIPE_F = 4
+PIPE_M = 8
+PIPE_STEPS = 5
+# pp_cards (tests/test_torch_cuda.py::test_pp_across_cards, NCCL, one rank
+# a card): (label, family, mesh config, steps, global B, T, microbatches).
+# GPT-2-125M at phase 6's configuration on two cards, against one process;
+# Llama-3-8B at full width and depth on four, the configuration that needs
+# the pipeline (8.03 B params with f32 Adam are ~128 GB of state; a rank
+# of pp=4 holds 8 layers and the replicated embedding and head), against
+# one card's no-grad loss_fn at the same weights and batch
+PP_RUNS = {"gpt2": ("gpt2-125m pp=2", "gpt2", {"pp": 2}, 3, 24, 1024, 8),
+           "llama": ("llama3-8b pp=4", "llama", {"pp": 4}, 2, 8, 2048, 8)}
+PP_LLAMA = "llama3-8b"
+PP_SPAWN_S = 900
+
 # (name, B, H, T, Dh, dtype, causal, layout). layout "qkv": q, k, v are
 # views split from one [B, T, 3*H*Dh] tensor and dO is the transposed view
 # of a [B, T, H*Dh] gradient, as gpt2._attention and autograd hand them to
@@ -347,8 +388,9 @@ SP_RUNS = (("gpt2 sp=2 ring", "gpt2", {"sp": 2}, 3, "ring"),
 # llama.attention hands them over; "contiguous": all four contiguous. The
 # first case is the GPT-2 training main path's own shape and layout (its
 # K1, K2, K3 records fill the kernels line); the second is the GPT-2
-# forward's; the last two are the Llama paths' (LLAMA_SHAPES), after the
-# earlier cases so that those draw the inputs they always drew.
+# forward's; then the Llama paths' (LLAMA_SHAPES), after the earlier cases
+# so that those draw the inputs they always drew, and a head dim of 80
+# (phi-2's widths), which the wrapper pads to the kernels' 128.
 KERNEL_CASES = [
     ("train-path", 24, 12, 1024, 64, torch.bfloat16, True, "qkv"),
     ("forward-path", 4, 12, 1024, 64, torch.bfloat16, True, "qkv"),
@@ -364,6 +406,7 @@ KERNEL_CASES = [
     ("dh32-non-causal", 2, 4, 256, 32, torch.bfloat16, False, "contiguous"),
     ("tinyllama-train", 8, 32, 2048, 64, torch.bfloat16, True, "gqa8"),
     ("llama3-8b-forward", 1, 32, 4096, 128, torch.bfloat16, True, "gqa4"),
+    ("dh80", 2, 32, 2048, 80, torch.bfloat16, True, "contiguous"),
 ]
 # the Llama paths' kernel cases, reported in the kernels line beside the
 # GPT-2 training path's
@@ -2019,25 +2062,40 @@ def _ring_run(q, k, v, do, sp: int, scale: float) -> tuple:
     return fwd, bwd
 
 
+def _padded_chunks(ts, sp: int) -> tuple:
+    """Each tensor's sp chunks along the sequence, padded at their ends as
+    the ring pads them (`ring._padded_len`), and the kv_len bound of the
+    non-causal pairs (None where nothing is padded)."""
+    chunks = [t.chunk(sp, dim=2) for t in ts]
+    n = chunks[0][0].shape[2]
+    n_pad = ring._padded_len(n)
+    return ([[ring._pad_seq(c, n_pad) for c in cs] for cs in chunks],
+            n if n_pad > n else None)
+
+
 def _ring_pairs(q, k, v, do, fwd, sp: int, scale: float) -> tuple:
     """Each live chunk pair's K1, K2, K3 against their plain versions, K2
-    and K3 fed the pair's rank's global out and lse: (max |d|, all within
-    their tolerances)."""
+    and K3 fed the pair's rank's global out and lse, on the chunks as the
+    ring pads them (K1 and K2 bounded by kv_len on the non-causal pairs):
+    (max |d|, all within their tolerances)."""
     bf16 = torch.bfloat16
-    qs, ks, vs, dos = (t.chunk(sp, dim=2) for t in (q, k, v, do))
+    (qs, ks, vs, dos), kv_len = _padded_chunks((q, k, v, do), sp)
+    n_pad = qs[0].shape[2]
     bq = bk = fa.DEFAULT_BLOCK_Q
     worst, ok = 0.0, True
     for r in range(sp):
-        out, lse = fwd[r]
+        out, lse = (ring._pad_seq(t, n_pad) for t in fwd[r])
         for j in range(r + 1):
             c = j == r
+            kl = None if c else kv_len
             args = (qs[r], ks[j], vs[j])
-            o, l = fa.flash_attention_fwd(*args, c, scale)
-            po, pl = fa.flash_attention_reference(*args, c, scale)
+            o, l = fa.flash_attention_fwd(*args, c, scale, kv_len=kl)
+            po, pl = fa.flash_attention_reference(*args, c, scale,
+                                                  kv_len=kl)
             dq, delta = fa.flash_attention_bwd_dq(*args, out, lse, dos[r], c,
-                                                  scale)
+                                                  scale, kv_len=kl)
             pdq, pdelta = fa._bwd_dq_reference(*args, out, lse, dos[r], c,
-                                               scale, bq, bk)
+                                               scale, bq, bk, kv_len=kl)
             dk, dv = fa.flash_attention_bwd_dkv(*args, dos[r], lse, delta, c,
                                                 scale)
             pdk, pdv = fa._bwd_dkv_reference(*args, dos[r], lse, pdelta, c,
@@ -2054,36 +2112,44 @@ def _ring_pairs(q, k, v, do, fwd, sp: int, scale: float) -> tuple:
 
 def _ring_chunk_records(q, k, v, do, sp: int, scale: float) -> list:
     """K1, K2 and K3 on the non-causal chunk pair (rank 1's Q, rank 0's
-    K/V), the ring's own shape: [{ms, plain_ms, bound_ms, bound_by,
-    library_ms, max_abs_err}] for K1, K2, K3."""
+    K/V), the ring's own shape (a ragged chunk padded, K1 and K2 bounded by
+    kv_len): [{ms, plain_ms, bound_ms, bound_by, library_ms, max_abs_err}]
+    for K1, K2, K3. The bounds count the real chunk's work, and SDPA runs
+    on the unpadded chunk."""
     bf16 = torch.bfloat16
-    qc, kc, vc, dc = (t.chunk(sp, dim=2)[i] for t, i in
-                      ((q, 1), (k, 0), (v, 0), (do, 1)))
-    B, H, n, Dh = qc.shape
+    (qs, ks, vs, dos), kl = _padded_chunks((q, k, v, do), sp)
+    qc, kc, vc, dc = qs[1], ks[0], vs[0], dos[1]
+    B, H, _, Dh = qc.shape
+    n = q.shape[2] // sp
     bq = bk = fa.DEFAULT_BLOCK_Q
-    o, l = fa.flash_attention_fwd(qc, kc, vc, False, scale)
-    dq, delta = fa.flash_attention_bwd_dq(qc, kc, vc, o, l, dc, False, scale)
+    o, l = fa.flash_attention_fwd(qc, kc, vc, False, scale, kv_len=kl)
+    dq, delta = fa.flash_attention_bwd_dq(qc, kc, vc, o, l, dc, False, scale,
+                                          kv_len=kl)
     dk, dv = fa.flash_attention_bwd_dkv(qc, kc, vc, dc, l, delta, False,
                                         scale)
-    po, _ = fa.flash_attention_reference(qc, kc, vc, False, scale)
+    po, _ = fa.flash_attention_reference(qc, kc, vc, False, scale,
+                                         kv_len=kl)
     pdq, pdelta = fa._bwd_dq_reference(qc, kc, vc, o, l, dc, False, scale,
-                                       bq, bk)
+                                       bq, bk, kv_len=kl)
     pdk, pdv = fa._bwd_dkv_reference(qc, kc, vc, dc, l, pdelta, False, scale,
                                      bq, bk)
-    qs, ks, vs = (t.detach().requires_grad_() for t in (qc, kc, vc))
-    so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=False)
+    real = [t[:, :, :n] for t in (qc, kc, vc, dc)]
+    qr, kr, vr = (t.detach().requires_grad_() for t in real[:3])
+    so = F.scaled_dot_product_attention(qr, kr, vr, is_causal=False)
     sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        qc, kc, vc, is_causal=False))
+        *real[:3], is_causal=False))
     sdpa_bwd = time_ms(lambda: torch.autograd.grad(
-        so, (qs, ks, vs), dc, retain_graph=True))
+        so, (qr, kr, vr), real[3], retain_graph=True))
     rows = [
-        (lambda: fa.flash_attention_fwd(qc, kc, vc, False, scale),
-         lambda: fa.flash_attention_reference(qc, kc, vc, False, scale),
+        (lambda: fa.flash_attention_fwd(qc, kc, vc, False, scale,
+                                        kv_len=kl),
+         lambda: fa.flash_attention_reference(qc, kc, vc, False, scale,
+                                              kv_len=kl),
          attention_bound, close(o, po, 0, 0)[0], sdpa_fwd),
         (lambda: fa.flash_attention_bwd_dq(qc, kc, vc, o, l, dc, False,
-                                           scale),
+                                           scale, kv_len=kl),
          lambda: fa._bwd_dq_reference(qc, kc, vc, o, l, dc, False, scale,
-                                      bq, bk),
+                                      bq, bk, kv_len=kl),
          dq_bound, close(dq, pdq, 0, 0)[0], sdpa_bwd),
         (lambda: fa.flash_attention_bwd_dkv(qc, kc, vc, dc, l, delta, False,
                                             scale),
@@ -2106,10 +2172,11 @@ def phase_ring(gen: torch.Generator, card: str) -> tuple:
     chunk pairs); the ring's out, lse, dQ, dK, dV against one K1 + K2 + K3
     over the whole sequence, and each chunk pair's kernels against their
     plain versions, within the bf16 plain tolerances; the ring timed
-    against one-shot flash. Returns ({path: launches}, the first case's
-    non-causal chunk records for K1, K2, K3)."""
+    against one-shot flash. A ragged case's chunks are padded as the ring
+    pads them. Returns ({path: launches}, the first case's non-causal chunk
+    records for K1, K2, K3, and the first ragged case's)."""
     bf16 = torch.bfloat16
-    paths, chunk = {}, None
+    paths, chunk, ragged = {}, None, None
     for name, B, H, KV, T, Dh, sp in RING_CASES:
         layout = "qkv" if KV == H else f"gqa{H // KV}"
         q, k, v, do = _case_inputs(gen, B, H, T, Dh, bf16, layout)
@@ -2143,8 +2210,20 @@ def phase_ring(gen: torch.Generator, card: str) -> tuple:
             "one-shot fwd+bwd": time_ms(lambda: fa.flash_attention_bwd(
                 q, k, v, *fa.flash_attention_fwd(q, k, v, True, scale), do,
                 True, scale), iters=3, warmup=1)}
+        n = T // sp
         if chunk is None:
             chunk = _ring_chunk_records(q, k, v, do, sp, scale)
+        elif ragged is None and ring._padded_len(n) > n:
+            ragged = _ring_chunk_records(q, k, v, do, sp, scale)
+            log(f"[ring chunk {name}] the ragged non-causal chunk pair B={B} "
+                f"H={H} {n}x{n} (padded to {ring._padded_len(n)}, kv_len "
+                f"{n}) Dh={Dh} bf16: " + "; ".join(
+                    f"{k} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+                    f"bound {r['bound_ms']:.4f} {r['bound_by']}, "
+                    f"{100 * r['bound_ms'] / r['ms']:.2f}%, sdpa "
+                    f"{r['library_ms']:.4f}, |d| vs plain "
+                    f"{r['max_abs_err']:.3g})"
+                    for k, r in zip(("K1", "K2", "K3"), ragged)))
         log(f"[ring {name}] B={B} H={H} ({KV} KV heads) T={T} Dh={Dh} bf16 "
             f"causal, sp={sp} virtual ranks (chunks of {T // sp}): K1/K2/K3 "
             f"launches {launches} (want {(live,) * 3}); ring vs one-shot "
@@ -2170,7 +2249,9 @@ def phase_ring(gen: torch.Generator, card: str) -> tuple:
             f"{100 * r['bound_ms'] / r['ms']:.2f}%, sdpa "
             f"{r['library_ms']:.4f}, |d| vs plain {r['max_abs_err']:.3g})"
             for k, r in zip(("K1", "K2", "K3"), chunk)))
-    return paths, chunk
+    if ragged is None:
+        raise AssertionError("RING_CASES has no ragged case")
+    return paths, chunk, ragged
 
 
 def phase_checkpoint(card: str) -> tuple:
@@ -2238,6 +2319,207 @@ def phase_checkpoint(card: str) -> tuple:
         raise AssertionError(f"K1/K2/K3 launches {launches} != {steps} x "
                              f"{per_step}")
     return launches
+
+
+def _pipe_per_step(cfg, F: int, M: int) -> tuple:
+    """K1/K2/K3 launches of one pipelined step on one rank, derived from the
+    schedule: at each of the M + F - 1 ticks the rank's stage runs its L/F
+    blocks (bubble ticks too, as the JAX schedule does), and each block
+    launches K1 in its forward and again in the remat recompute, K2 and K3
+    once in its backward."""
+    per_block = (2, 1, 1)
+    return tuple((M + F - 1) * (cfg.n_layer // F) * k for k in per_block)
+
+
+def phase_pipeline(card: str) -> tuple:
+    """GPT-2-125M at phase 6's configuration through compile_pipeline_train
+    on PIPE_F virtual stages of this card (the schedule the ranks run,
+    driven in one process) with PIPE_M microbatches, against
+    compile_model_train on one device from the same init and batch: loss
+    within TOL_TRAIN_LOSS and grad norm within TOL_TRAIN_GRAD_NORM at every
+    step, launches exactly F times a rank's count per step. The last step
+    is profiled. Returns the launches (the path's counts)."""
+    cfg = _dp_cfg(PRESET)
+    B, T, F, M, steps = TRAIN_B, SEQ, PIPE_F, PIPE_M, PIPE_STEPS
+    batch = {"tokens": _dp_tokens(cfg, B, T).to(DEVICE)}
+    per_step = tuple(F * k for k in _pipe_per_step(cfg, F, M))
+    log(f"[pipeline {PRESET}] expected K1/K2/K3 launches a step: "
+        f"{per_step} = {F} stages x {M + F - 1} ticks x {cfg.n_layer // F} "
+        f"blocks x (2, 1, 1)")
+    ref, ref_secs, _ = _train_run(cfg, _dp_opt(), batch, steps, -1)
+    torch.cuda.empty_cache()
+    train = spmd.compile_pipeline_train(gpt2, cfg, MeshConfig(pp=F), M,
+                                        optimizer=_dp_opt(), device=DEVICE)
+    state = train.init_fn(torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hier_bytes.clear()
+    _zero_counts()
+    hist, secs, profile = [], [], None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        if i == steps - 1:
+            (state, m), *profile = _profiled(
+                lambda: train.step_fn(state, batch))
+        else:
+            state, m = train.step_fn(state, batch)
+        hist.append((float(m["loss"]), float(m["grad_norm"])))   # syncs
+        secs.append(time.perf_counter() - t0)
+    launches = _flash_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hop_bytes = sum(hier_bytes.values()) / (steps * (M + F - 1) * F)
+    del train, state
+    fpt = gpt2.flops_per_token(cfg, T)
+    ms, tps, mfu = _train_rates(secs, steps - 1, fpt, B * T)
+    ref_ms = _step_ms(ref_secs, -1)
+    d_loss = max(abs(a[0] - b[0]) for a, b in zip(hist, ref))
+    d_norm = max(abs(a[1] / b[1] - 1) for a, b in zip(hist, ref))
+    log(f"[pipeline {PRESET}] B={B} T={T} bf16 remat=dots, {F} virtual "
+        f"stages of {cfg.n_layer // F} layers, {M} microbatches of "
+        f"{B // M} ({M + F - 1} ticks, bubble {(F - 1) / (M + F - 1):.4f} "
+        f"of them), {steps} steps: loss "
+        f"{' '.join(f'{v:.6f}' for v, _ in hist)}, one device "
+        f"{' '.join(f'{v:.6f}' for v, _ in ref)}, max |dloss| {d_loss:.3g} "
+        f"(tol {TOL_TRAIN_LOSS}); grad_norm "
+        f"{' '.join(f'{v:.6f}' for _, v in hist)}, one device "
+        f"{' '.join(f'{v:.6f}' for _, v in ref)}, max relative gap "
+        f"{d_norm:.3g} (tol {TOL_TRAIN_GRAD_NORM}); K1/K2/K3 launches "
+        f"{launches} (want {tuple(steps * k for k in per_step)}); step "
+        f"{ms:.2f} ms (median of steps 3+, the profiled last one left out) "
+        f"against {ref_ms:.2f} ms on one device, {tps:.0f} tokens/s, MFU "
+        f"{mfu:.2f}% of 989 TFLOP/s bf16; {hop_bytes / 1e6:.3f} MB a hop "
+        f"(pipeline.ppermute accounted, in memory here); peak memory "
+        f"{peak_gb:.2f} GB on {card}")
+    _log_profile("pipeline", profile, steps - 1, secs)
+    if launches != tuple(steps * k for k in per_step):
+        raise AssertionError(f"pipeline launches {launches} != {steps} x "
+                             f"{per_step}")
+    if not all(math.isfinite(x) for h in hist for x in h):
+        raise AssertionError("non-finite pipelined loss or grad norm")
+    if d_loss > TOL_TRAIN_LOSS or d_norm > TOL_TRAIN_GRAD_NORM:
+        raise AssertionError("the pipelined step disagrees with one device")
+    return launches
+
+
+def _pp_case(fam: str, device) -> tuple:
+    """(model module, config, tokens [B, T+1] on the CPU, the init
+    generator's device) of a PP_RUNS run: GPT-2 at phase 6's
+    configuration, Llama-3-8B with remat and flash, its weights drawn on
+    the card."""
+    _, _, _, _, B, T, _ = PP_RUNS[fam]
+    if fam == "gpt2":
+        cfg = _dp_cfg(PRESET)
+        return gpt2, cfg, _dp_tokens(cfg, B, T), "cpu"
+    cfg = llama.LlamaConfig.preset(PP_LLAMA, attn_impl="flash", remat=True)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1),
+                           generator=torch.Generator().manual_seed(2))
+    return llama, cfg, tokens, device
+
+
+def _pp_rank(rank: int, world: int, tmp: str, fam: str,
+             backend: str) -> None:
+    """One stage of a PP_RUNS run, over NCCL rank r on card r (over gloo on
+    the CPU, a rehearsal): the init, then the steps with the launches
+    counted from 0, each step timed, and the peak memory of the steps."""
+    nccl = backend == "nccl"
+    device = torch.device("cuda", rank) if nccl else torch.device(DEVICE)
+    if nccl:
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(tmp, f"pp-{backend}"), world), rank=rank,
+        world_size=world, **({"device_id": device} if nccl else {}))
+    _, _, config, steps, _, _, M = PP_RUNS[fam]
+    model, cfg, tokens, init_dev = _pp_case(fam, device)
+    mesh = build_mesh(config, device_type=device.type)
+    train = spmd.compile_pipeline_train(model, cfg, mesh, M,
+                                        optimizer=_dp_opt(), device=device)
+    t0 = time.perf_counter()
+    state = train.init_fn(torch.Generator(device=init_dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {"tokens": tokens.to(device)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    hist, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, met = train.step_fn(state, batch)
+        hist.append((float(met["loss"]), float(met["grad_norm"])))
+        secs.append(time.perf_counter() - t0)
+    torch.save(dict(hist=hist, secs=secs, launches=_flash_counts(),
+                    init_s=init_s,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9),
+               os.path.join(tmp, f"pp-rank{rank}.pt"))
+    del train, state
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def pp_cards(card: str, tmp: str, fam: str, backend: str = "nccl"
+             ) -> tuple:
+    """PP_RUNS[fam] over NCCL, one rank a card: GPT-2-125M on pp=2 against
+    one process on one card (every step's loss within TOL_TRAIN_LOSS and
+    grad norm within TOL_TRAIN_GRAD_NORM), Llama-3-8B on pp=4 against one
+    card's no-grad loss_fn at the same weights and batch (the first loss
+    within TOL_TRAIN_LOSS); exact launches a rank, the same losses on
+    every rank. Raises if a gate fails; returns the launches by rank.
+    tests/test_torch_cuda.py::test_pp_across_cards runs it."""
+    label, _, config, steps, B, T, M = PP_RUNS[fam]
+    F = config["pp"]
+    model, cfg, tokens, init_dev = _pp_case(fam, DEVICE)
+    batch = {"tokens": tokens.to(DEVICE)}
+    if fam == "gpt2":
+        ref, ref_secs, _ = _train_run(cfg, _dp_opt(), batch, steps, -1)
+        ref_text = (f"one process {' '.join(f'{v:.6f}' for v, _ in ref)}"
+                    f" (grad norms "
+                    f"{' '.join(f'{v:.6f}' for _, v in ref)}), "
+                    f"{1e3 * statistics.median(ref_secs[1:]):.2f} ms a "
+                    f"step")
+    else:
+        params = model.init_params(
+            torch.Generator(device=init_dev).manual_seed(0), cfg, DEVICE)
+        with torch.no_grad():
+            ref = [(float(model.loss_fn(params, batch, cfg)), None)]
+        del params
+        ref_text = f"one card's no-grad loss_fn {ref[0][0]:.6f}"
+    del batch
+    torch.cuda.empty_cache()
+    _join(_spawn(_pp_rank, F, (F, tmp, fam, backend), PP_SPAWN_S))
+    outs = [torch.load(os.path.join(tmp, f"pp-rank{r}.pt"))
+            for r in range(F)]
+    o = outs[0]
+    want = tuple(steps * k for k in _pipe_per_step(cfg, F, M))
+    got = [x["launches"] for x in outs]
+    gap = max(abs(a[0] - b[0]) for a, b in zip(o["hist"], ref))
+    gap_n = max((abs(a[1] - b[1]) / b[1] for a, b in zip(o["hist"], ref)
+                 if b[1] is not None), default=0.0)
+    step_ms = 1e3 * statistics.median(o["secs"][1:])
+    flops = (6 * model.num_params(cfg)
+             + 12 * cfg.n_layer * cfg.d_model * T) * B * T
+    mfu = 100 * flops / (step_ms / 1e3) / (F * PEAK_FLOPS[torch.bfloat16])
+    log(f"[pp {label}] {model.num_params(cfg) / 1e9:.3f} B params, B={B} "
+        f"T={T} bf16 remat, {F} ranks over {backend} (one card each, "
+        f"{cfg.n_layer // F} layers a stage), {M} microbatches of {B // M}, "
+        f"{steps} steps: losses {' '.join(f'{v:.6f}' for v, _ in o['hist'])}"
+        f" (grad norms {' '.join(f'{v:.6f}' for _, v in o['hist'])}); "
+        f"{ref_text}; max |dloss| {gap:.3g} (tol {TOL_TRAIN_LOSS}), max "
+        f"relative grad-norm gap {gap_n:.3g} (tol {TOL_TRAIN_GRAD_NORM}); "
+        f"K1/K2/K3 launches by rank {got} (want {want} each); init "
+        f"{o['init_s']:.1f} s; step {step_ms:.2f} ms (median of steps 2+), "
+        f"{B * T / step_ms * 1e3:.0f} tokens/s, MFU {mfu:.2f}% of {F} x 989 "
+        f"TFLOP/s bf16; peak memory a rank "
+        f"{', '.join(f'{x['peak_gb']:.2f}' for x in outs)} GB on {F} x "
+        f"{card}")
+    ok = (all(x["hist"] == o["hist"] for x in outs)
+          and all(g == want for g in got)
+          and all(math.isfinite(v) for h in o["hist"] for v in h)
+          and gap <= TOL_TRAIN_LOSS and gap_n <= TOL_TRAIN_GRAD_NORM)
+    if not ok:
+        raise AssertionError(f"the {label} run failed its gates")
+    return got
 
 
 def _logit_gap(a, b) -> tuple:
@@ -2547,10 +2829,17 @@ def main() -> int:
 
     # ring attention's schedule on virtual ranks, then a TrainState saved
     # and restored: each path from counts at 0
-    ring_paths, ring_chunk = phase_ring(gen, card)
+    ring_paths, ring_chunk, ring_ragged = phase_ring(gen, card)
     paths.update(ring_paths)
     torch.cuda.empty_cache()
     paths[f"{PRESET} checkpoint save/restore"] = phase_checkpoint(card)
+    torch.cuda.empty_cache()
+
+    # the GPipe pipeline on virtual stages: counts from 0 in the phase
+    t0 = time.perf_counter()
+    paths[f"{PRESET} pipeline pp={PIPE_F} (virtual stages) train"] = \
+        phase_pipeline(card)
+    log(f"[pipeline] phase {time.perf_counter() - t0:.1f} s")
     log(f"[paths] K1/K2/K3 launches by path: {paths}")
 
     # each kernel's records by case: the GPT-2 training path's fill the
@@ -2566,7 +2855,8 @@ def main() -> int:
              launches=launches[i], **by_case["train-path"],
              launches_by_path={p: c[i] for p, c in paths.items()},
              llama_shapes={n: by_case[n] for n in LLAMA_SHAPES},
-             ring_chunk=ring_chunk[i])
+             ring_chunk=ring_chunk[i], ring_ragged_chunk=ring_ragged[i],
+             head_dim_80=by_case["dh80"])
         for i, (name, cu, line, by_case) in enumerate(rows)]
     print(card)
     print(json.dumps({"kernels": kernels}))

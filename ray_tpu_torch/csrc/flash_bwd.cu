@@ -10,6 +10,10 @@
 //   `flash_bwd_dkv_kernel` (f32): per (batch, head, key tile), walk the q
 //   tiles from the causal start, recompute P and dS and accumulate
 //   dV += P^T dO and dK += dS^T Q.
+// K2 takes a bound on valid keys, kv_len <= Tk, as K1 does: keys at or past
+// it get P = 0, so a chunk padded at its end (the ring's ragged chunks) adds
+// nothing to dQ. K3 needs none: a padded query row carries dO = 0, hence
+// dP = 0, Delta = 0 and dS = 0, and the padded keys' dK, dV are dropped.
 // Delta = rowsum(dO * O), which JAX computes with jnp outside its kernels,
 // is a prologue of K2 here: each K2 block sums its own rows (f32) and writes
 // them to a [B, H, Tq] buffer that K3 then reads. Sums are f32; dQ, dK, dV
@@ -95,7 +99,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ o, const float* __restrict__ dout,
     const float* __restrict__ lse, float* __restrict__ dq, float* __restrict__ delta,
-    int H, int Tq, int Tk, Strides st, int causal, float scale) {
+    int H, int Tq, int kv_len, Strides st, int causal, float scale) {
   constexpr int LD = DH + 1;
   constexpr int LDS = BK + 1;
   constexpr int CPT = DH / TPR;   // dQ columns per thread
@@ -144,14 +148,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
 #pragma unroll
   for (int i = 0; i < CPT; ++i) acc[i] = 0.f;
 
-  int num_kb = (Tk + BK - 1) / BK;
+  int num_kb = (kv_len + BK - 1) / BK;
   if (causal) num_kb = min(num_kb, (q0 + BQ + BK - 1) / BK);  // causal frontier
 
   for (int jk = 0; jk < num_kb; ++jk) {
     const int k0 = jk * BK;
     __syncthreads();  // the previous tile's K, V, dS are no longer read
-    load_tile<DH>(sK, k + bk_, st.s[5], k0, Tk, 1.f);
-    load_tile<DH>(sV, v + bv_, st.s[8], k0, Tk, 1.f);
+    load_tile<DH>(sK, k + bk_, st.s[5], k0, kv_len, 1.f);
+    load_tile<DH>(sV, v + bv_, st.s[8], k0, kv_len, 1.f);
     __syncthreads();
 
 #pragma unroll 4
@@ -165,7 +169,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
       }
       const int kpos = k0 + c;
       float ds = 0.f;  // a masked key has P = exp(-1e30 - lse) = 0
-      if (kpos < Tk && !(causal && kpos > qpos)) {
+      if (kpos < kv_len && !(causal && kpos > qpos)) {
         const float p = expf(s - lse_r);
         ds = p * (dp - dl) * scale;
       }
@@ -330,7 +334,7 @@ __global__ void __launch_bounds__(DqMmaCfg<DH>::NT) flash_bwd_dq_mma_kernel(
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
     const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
     __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
-    int H, int Tq, int Tk, Strides st, int causal, float scale) {
+    int H, int Tq, int kv_len, Strides st, int causal, float scale) {
   using bf16 = __nv_bfloat16;
   using C = DqMmaCfg<DH>;
   using namespace rt_tc;
@@ -359,14 +363,14 @@ __global__ void __launch_bounds__(DqMmaCfg<DH>::NT) flash_bwd_dq_mma_kernel(
   const int wq0 = q0 + 16 * warp;  // the warp's first q row
   const int row0 = wq0 + g;        // this thread's rows: row0, row0 + 8
 
-  int num_kb = (Tk + BK - 1) / BK;
+  int num_kb = (kv_len + BK - 1) / BK;
   if (causal) num_kb = min(num_kb, (q0 + BQ + BK - 1) / BK);  // causal frontier
 
   load_tile_async<BQ, DH, NT>(sQ, qb, st.s[2], q0, Tq);
   load_tile_async<BQ, DH, NT>(sDO, db, st.s[14], q0, Tq);
   load_tile_async<BQ, DH, NT>(sO, ob, st.s[11], q0, Tq);
-  load_tile_async<BK, DH, NT>(sK, kb, st.s[5], 0, Tk);
-  load_tile_async<BK, DH, NT>(sV, vb, st.s[8], 0, Tk);
+  load_tile_async<BK, DH, NT>(sK, kb, st.s[5], 0, kv_len);
+  load_tile_async<BK, DH, NT>(sV, vb, st.s[8], 0, kv_len);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -425,8 +429,8 @@ __global__ void __launch_bounds__(DqMmaCfg<DH>::NT) flash_bwd_dq_mma_kernel(
   for (int j = 0; j < num_kb; ++j) {
     const int k0 = j * BK;
     if (j + 1 < num_kb) {  // the next tile streams in while this one computes
-      load_tile_async<BK, DH, NT>(sK + ((j + 1) & 1) * BK * LD, kb, st.s[5], k0 + BK, Tk);
-      load_tile_async<BK, DH, NT>(sV + ((j + 1) & 1) * BK * LD, vb, st.s[8], k0 + BK, Tk);
+      load_tile_async<BK, DH, NT>(sK + ((j + 1) & 1) * BK * LD, kb, st.s[5], k0 + BK, kv_len);
+      load_tile_async<BK, DH, NT>(sV + ((j + 1) & 1) * BK * LD, vb, st.s[8], k0 + BK, kv_len);
       cp_async_commit();
     }
     const bf16* cK = sK + (j & 1) * BK * LD;
@@ -460,10 +464,10 @@ __global__ void __launch_bounds__(DqMmaCfg<DH>::NT) flash_bwd_dq_mma_kernel(
         mma_bf16(dp[2 * np + 1], da, bv[2], bv[3]);
       }
     }
-    // keys past Tk (zero rows, which would score 0 and give P = exp(-lse))
+    // keys past kv_len (zero rows, which would score 0 and give P = exp(-lse))
     // and keys past the row under causal masking get P = 0 exactly, as
     // exp(-1e30 - lse) does in the reference; only edge tiles need the test
-    const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > wq0);
+    const bool edge = k0 + BK > kv_len || (causal && k0 + BK - 1 > wq0);
 #pragma unroll
     for (int n = 0; n < NK; ++n) {
 #pragma unroll
@@ -471,7 +475,7 @@ __global__ void __launch_bounds__(DqMmaCfg<DH>::NT) flash_bwd_dq_mma_kernel(
         float p = exp2f(fmaf(s[n][e], sl2, nl[e >> 1]));  // scale on the f32 score
         if (edge) {
           const int key = k0 + 8 * n + 2 * t4 + (e & 1);
-          if (key >= Tk || (causal && key > row0 + 8 * (e >> 1))) p = 0.f;
+          if (key >= kv_len || (causal && key > row0 + 8 * (e >> 1))) p = 0.f;
         }
         dp[n][e] = p * (dp[n][e] - dl[e >> 1]);  // dS, without its factor scale
       }
@@ -701,7 +705,7 @@ __global__ void __launch_bounds__(DkvMmaCfg<DH>::NT) flash_bwd_dkv_mma_kernel(
 template <int DH>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const float* lse, void* dq, float* delta,
-                      int B, int H, int Tq, int Tk, const Strides& st, int causal,
+                      int B, int H, int Tq, int kv_len, const Strides& st, int causal,
                       float scale, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -711,14 +715,14 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
   flash_bwd_dq_kernel<DH><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(o), static_cast<const float*>(dout), lse,
-      static_cast<float*>(dq), delta, H, Tq, Tk, st, causal, scale);
+      static_cast<float*>(dq), delta, H, Tq, kv_len, st, causal, scale);
   return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const void* o,
                           const void* dout, const float* lse, void* dq, float* delta,
-                          int B, int H, int Tq, int Tk, const Strides& st, int causal,
+                          int B, int H, int Tq, int kv_len, const Strides& st, int causal,
                           float scale, cudaStream_t stream) {
   using C = DqMmaCfg<DH>;
   using bf16 = __nv_bfloat16;
@@ -730,7 +734,7 @@ cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const voi
   flash_bwd_dq_mma_kernel<DH><<<grid, C::NT, C::smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
-      static_cast<bf16*>(dq), delta, H, Tq, Tk, st, causal, scale);
+      static_cast<bf16*>(dq), delta, H, Tq, kv_len, st, causal, scale);
   return cudaGetLastError();
 }
 
@@ -781,19 +785,22 @@ Strides copy_strides(const int* s, int n) {
 // q, k, v, o, dout: [B, H, T, Dh] with unit stride on Dh; `strides` holds
 // their batch, head and time element strides (15 ints, in that order; bf16:
 // base addresses and strides in bytes multiples of 16, for cp.async).
-// lse: contiguous [B, H, Tq] f32. Writes dq (contiguous [B, H, Tq, Dh], the
-// input type) and delta (contiguous [B, H, Tq] f32). dtype 0 = float32 (FMA
-// body), 1 = bfloat16 (tensor-core body). Returns the cudaError_t of the
-// launch (0 on success).
+// lse: contiguous [B, H, Tq] f32. Keys at or past kv_len (1 <= kv_len <= Tk)
+// are masked (P = 0) and never read, as in K1. Writes dq (contiguous [B, H,
+// Tq, Dh], the input type) and delta (contiguous [B, H, Tq] f32). dtype 0 =
+// float32 (FMA body), 1 = bfloat16 (tensor-core body). Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                const void* dout, const void* lse, void* dq, void* delta,
-                               int B, int H, int Tq, int Tk, int Dh, const int* strides,
-                               int causal, float scale, int dtype, void* stream) {
+                               int B, int H, int Tq, int Tk, int kv_len, int Dh,
+                               const int* strides, int causal, float scale, int dtype,
+                               void* stream) {
+  if (kv_len < 1 || kv_len > Tk) return (int)cudaErrorInvalidValue;
   const Strides st = copy_strides(strides, 15);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-#define RT_DQ_ARGS (q, k, v, o, dout, l, dq, dl, B, H, Tq, Tk, st, causal, scale, s)
+#define RT_DQ_ARGS (q, k, v, o, dout, l, dq, dl, B, H, Tq, kv_len, st, causal, scale, s)
   if (dtype == 0) {  // f32: the FMA body
     if (Dh == 32) return (int)launch_dq<32> RT_DQ_ARGS;
     if (Dh == 64) return (int)launch_dq<64> RT_DQ_ARGS;

@@ -6,8 +6,9 @@
 // normalizer l (clamped at 1e-30) and f32 accumulator; O is written in the
 // input type, lse = m + log(l) in f32. Causal mode stops at each q tile's
 // causal frontier and masks by position (diagonal at 0, Tq == Tk). Ragged
-// sequence ends are masked (rows past Tq are not stored, keys past Tk score
-// -1e30), so any Tq, Tk work.
+// sequence ends are masked (rows past Tq are not stored, keys at or past the
+// bound kv_len <= Tk score -1e30 and are never read), so any Tq, Tk work, and
+// a K/V chunk zero-padded at its end (the ring's ragged chunks) is exact.
 //
 // What bounds it: at the training shape (B=24, H=12, T=1024, Dh=64, bf16,
 // causal; 151 M kept (q, k) pairs) reading q, k, v and writing O and lse
@@ -68,7 +69,7 @@ constexpr size_t smem_bytes() {
 template <int DH>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, float* __restrict__ lse, int H, int Tq, int Tk,
+    float* __restrict__ o, float* __restrict__ lse, int H, int Tq, int kv_len,
     int sqb, int sqh, int sqt, int skb, int skh, int skt,
     int svb, int svh, int svt, int causal, float scale) {
   constexpr int LD = DH + 1;
@@ -102,7 +103,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   for (int i = 0; i < CPT; ++i) acc[i] = 0.f;
 
   const int qpos = q0 + r;
-  int num_kb = (Tk + BK - 1) / BK;
+  int num_kb = (kv_len + BK - 1) / BK;
   if (causal) num_kb = min(num_kb, (q0 + BQ + BK - 1) / BK);  // causal frontier
 
   for (int jk = 0; jk < num_kb; ++jk) {
@@ -110,7 +111,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     __syncthreads();  // the previous tile's K, V, P are no longer read
     for (int idx = tid; idx < BK * DH; idx += NT) {
       const int rr = idx / DH, d = idx % DH, t = k0 + rr;
-      const bool ok = t < Tk;
+      const bool ok = t < kv_len;
       sK[rr * LD + d] = ok ? kb[(long long)t * skt + d] : 0.f;
       sV[rr * DH + d] = ok ? vb[(long long)t * svt + d] : 0.f;
     }
@@ -125,7 +126,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 #pragma unroll 16
       for (int d = 0; d < DH; ++d) dot = fmaf(sQ[r * LD + d], sK[c * LD + d], dot);
       const int kpos = k0 + c;
-      if (kpos >= Tk || (causal && kpos > qpos)) dot = NEG_INF;
+      if (kpos >= kv_len || (causal && kpos > qpos)) dot = NEG_INF;
       s[j] = dot;
       mx = fmaxf(mx, dot);
     }
@@ -184,7 +185,7 @@ struct MmaCfg {
 template <int DH>
 __global__ void __launch_bounds__(MmaCfg<DH>::NT) flash_fwd_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, float* __restrict__ lse, int H, int Tq, int Tk,
+    bf16* __restrict__ o, float* __restrict__ lse, int H, int Tq, int kv_len,
     int sqb, int sqh, int sqt, int skb, int skh, int skt,
     int svb, int svh, int svt, int causal, float scale) {
   using C = MmaCfg<DH>;
@@ -209,12 +210,12 @@ __global__ void __launch_bounds__(MmaCfg<DH>::NT) flash_fwd_mma_kernel(
   const int wq0 = q0 + 16 * warp;  // the warp's first query row
   const int row0 = wq0 + g;        // this thread's rows: row0, row0 + 8
 
-  int num_kb = (Tk + BK - 1) / BK;
+  int num_kb = (kv_len + BK - 1) / BK;
   if (causal) num_kb = min(num_kb, (q0 + BQ + BK - 1) / BK);  // causal frontier
 
   load_tile_async<BQ, DH, NT>(sQ, qb, sqt, q0, Tq);
-  load_tile_async<BK, DH, NT>(sK, kb, skt, 0, Tk);
-  load_tile_async<BK, DH, NT>(sV, vb, svt, 0, Tk);
+  load_tile_async<BK, DH, NT>(sK, kb, skt, 0, kv_len);
+  load_tile_async<BK, DH, NT>(sV, vb, svt, 0, kv_len);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -235,8 +236,8 @@ __global__ void __launch_bounds__(MmaCfg<DH>::NT) flash_fwd_mma_kernel(
   for (int j = 0; j < num_kb; ++j) {
     const int k0 = j * BK;
     if (j + 1 < num_kb) {  // the next tile streams in while this one computes
-      load_tile_async<BK, DH, NT>(sK + ((j + 1) & 1) * BK * LD, kb, skt, k0 + BK, Tk);
-      load_tile_async<BK, DH, NT>(sV + ((j + 1) & 1) * BK * LD, vb, svt, k0 + BK, Tk);
+      load_tile_async<BK, DH, NT>(sK + ((j + 1) & 1) * BK * LD, kb, skt, k0 + BK, kv_len);
+      load_tile_async<BK, DH, NT>(sV + ((j + 1) & 1) * BK * LD, vb, svt, k0 + BK, kv_len);
       cp_async_commit();
     }
     const bf16* cK = sK + (j & 1) * BK * LD;
@@ -258,7 +259,7 @@ __global__ void __launch_bounds__(MmaCfg<DH>::NT) flash_fwd_mma_kernel(
           mma_bf16(s[2 * np + 1], qf[kd], kf[2], kf[3]);
         }
       }
-      const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > wq0);
+      const bool edge = k0 + BK > kv_len || (causal && k0 + BK - 1 > wq0);
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int n = 0; n < NK; ++n) {
@@ -267,7 +268,7 @@ __global__ void __launch_bounds__(MmaCfg<DH>::NT) flash_fwd_mma_kernel(
           float x = s[n][e] * sl2;  // scale applied to the f32 score
           if (edge) {
             const int key = k0 + 8 * n + 2 * t4 + (e & 1);
-            if (key >= Tk || (causal && key > row0 + 8 * (e >> 1))) x = NEG_INF;
+            if (key >= kv_len || (causal && key > row0 + 8 * (e >> 1))) x = NEG_INF;
           }
           s[n][e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -337,7 +338,7 @@ __global__ void __launch_bounds__(MmaCfg<DH>::NT) flash_fwd_mma_kernel(
 // ---------------------------------------------------------------- launches
 template <int DH>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o, float* lse,
-                       int B, int H, int Tq, int Tk, const int* st, int causal,
+                       int B, int H, int Tq, int kv_len, const int* st, int causal,
                        float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -346,14 +347,14 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o, flo
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<DH><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, H, Tq, Tk, st[0], st[1],
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, Tq, kv_len, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, scale);
   return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
-                       int B, int H, int Tq, int Tk, const int* st, int causal,
+                       int B, int H, int Tq, int kv_len, const int* st, int causal,
                        float scale, cudaStream_t stream) {
   using C = MmaCfg<DH>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -362,7 +363,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, flo
   dim3 grid((Tq + C::BQ - 1) / C::BQ, H, B);
   flash_fwd_mma_kernel<DH><<<grid, C::NT, C::smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, H, Tq, Tk, st[0], st[1], st[2], st[3], st[4], st[5],
+      static_cast<bf16*>(o), lse, H, Tq, kv_len, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], causal, scale);
   return cudaGetLastError();
 }
@@ -372,18 +373,20 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, flo
 // q, k, v: [B, H, T, Dh] with unit stride on Dh and the given element
 // strides of batch, head and time (bf16: base addresses and strides in bytes
 // multiples of 16, for cp.async); o: contiguous [B, H, Tq, Dh] in the input
-// type; lse: contiguous [B, H, Tq] f32. dtype 0 = float32 (FMA body),
+// type; lse: contiguous [B, H, Tq] f32. Keys at or past kv_len (1 <= kv_len
+// <= Tk) are masked. dtype 0 = float32 (FMA body),
 // 1 = bfloat16 (tensor-core body). Returns the cudaError_t of the launch (0
 // on success).
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                            void* lse, int B, int H, int Tq, int Tk, int Dh,
+                            void* lse, int B, int H, int Tq, int Tk, int kv_len, int Dh,
                             int sqb, int sqh, int sqt, int skb, int skh, int skt,
                             int svb, int svh, int svt, int causal, float scale,
                             int dtype, void* stream) {
+  if (kv_len < 1 || kv_len > Tk) return (int)cudaErrorInvalidValue;
   const int st[9] = {sqb, sqh, sqt, skb, skh, skt, svb, svh, svt};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-#define RT_FWD(KIND, DH) launch_##KIND<DH>(q, k, v, o, l, B, H, Tq, Tk, st, causal, scale, s)
+#define RT_FWD(KIND, DH) launch_##KIND<DH>(q, k, v, o, l, B, H, Tq, kv_len, st, causal, scale, s)
   if (dtype == 0) {
     if (Dh == 32) return (int)RT_FWD(fma, 32);
     if (Dh == 64) return (int)RT_FWD(fma, 64);

@@ -30,11 +30,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 KERNELS = {
     "flash_fwd": ("flash_fwd.cu", [
-        ("rt_flash_fwd", [_P, _P, _P, _P, _P] + [_I] * 5 + [_I] * 9
+        ("rt_flash_fwd", [_P, _P, _P, _P, _P] + [_I] * 6 + [_I] * 9
          + [_I, _F, _I, _P]),
     ]),
     "flash_bwd": ("flash_bwd.cu", [
-        ("rt_flash_bwd_dq", [_P] * 8 + [_I] * 5 + [_IP, _I, _F, _I, _P]),
+        ("rt_flash_bwd_dq", [_P] * 8 + [_I] * 6 + [_IP, _I, _F, _I, _P]),
         ("rt_flash_bwd_dkv", [_P] * 8 + [_I] * 5 + [_IP, _I, _F, _I, _P]),
     ]),
 }

@@ -14,6 +14,16 @@ tensor cores (mma.sync, f32 accumulators); in f32, on f32 FMAs.
 - A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
   version (`flash_attention_reference`, `flash_attention_bwd_reference`);
   any other device raises.
+- The kernels are built for head dims 32, 64 and 128 (`HEAD_DIMS`). A head
+  dim up to 128 that is not one of them is zero-padded on the last axis to
+  the next of them, with the scale of the original head dim, and O, dQ,
+  dK, dV are sliced back: zero columns add nothing to q k^T, and the extra
+  output columns are dropped, so this is exact. Both routes pad, so the
+  CPU path runs the same padding. Past 128 the kernels' register budget
+  (211-247 registers a thread at Dh=128) is the limit, and it raises.
+- K1 and K2 take `kv_len`, a bound on valid keys (keys at or past it are
+  masked): a K/V chunk zero-padded at its end, as the ring pads its ragged
+  chunks, is exact. K3 needs no bound (padded query rows carry dO = 0).
 - Delta = rowsum(dO * O), which JAX computes outside its kernels, is a
   prologue of K2 here: K2 writes it to a ``[B, H, Tq]`` f32 buffer that K3
   reads, so the backward is two launches and no extra pass over dO and O.
@@ -58,11 +68,13 @@ def mha_reference(q, k, v, causal: bool = True,
 
 def flash_attention_reference(q, k, v, causal: bool = True,
                               scale: Optional[float] = None,
-                              block_k: int = DEFAULT_BLOCK_K
+                              block_k: int = DEFAULT_BLOCK_K,
+                              kv_len: Optional[int] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K1: blockwise online softmax over key blocks, f32 running
-    max, normalizer and accumulator, causal diagonal at 0. Returns
-    (out [B,H,Tq,Dh] in q's dtype, lse [B,H,Tq] f32).
+    max, normalizer and accumulator, causal diagonal at 0, keys at or past
+    `kv_len` (default Tk) masked. Returns (out [B,H,Tq,Dh] in q's dtype,
+    lse [B,H,Tq] f32).
 
     All query rows advance together. A key block past one row's causal
     frontier only masks that row (its weight is exp(-1e30 - m) = 0 and its
@@ -80,9 +92,11 @@ def flash_attention_reference(q, k, v, causal: bool = True,
         kb = k[:, :, k0:k0 + bk].float()
         vb = v[:, :, k0:k0 + bk].float()
         s = qs @ kb.transpose(-1, -2)
+        k_pos = k0 + torch.arange(kb.shape[2], device=q.device)[None, :]
         if causal:
-            k_pos = k0 + torch.arange(kb.shape[2], device=q.device)[None, :]
             s = torch.where(q_pos >= k_pos, s, NEG_INF)
+        if kv_len is not None:
+            s = torch.where(k_pos < kv_len, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         corr = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
@@ -93,7 +107,31 @@ def flash_attention_reference(q, k, v, causal: bool = True,
     return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def _check(q, k, v, causal, block_q, block_k):
+def _head_width(dh: int) -> int:
+    """The kernels' head width for a head dim: the least of HEAD_DIMS that
+    holds it."""
+    for width in HEAD_DIMS:
+        if dh <= width:
+            return width
+    raise ValueError(f"head dim {dh} > {HEAD_DIMS[-1]}: the flash kernels' "
+                     f"register budget ends at {HEAD_DIMS[-1]}")
+
+
+def _pad_heads(*ts) -> tuple:
+    """ts zero-padded on the last (head) axis to the kernels' width."""
+    dh = ts[0].shape[-1]
+    width = _head_width(dh)
+    if width == dh:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, width - dh)) for t in ts)
+
+
+def _unpad_heads(dh: int, *ts) -> tuple:
+    """ts sliced back to head dim `dh` (views; as they are if not padded)."""
+    return tuple(t if t.shape[-1] == dh else t[..., :dh] for t in ts)
+
+
+def _check(q, k, v, causal, block_q, block_k, kv_len=None):
     if q.dim() != 4 or k.shape != v.shape or q.shape[:2] != k.shape[:2] \
             or q.shape[3] != k.shape[3]:
         raise ValueError(f"expected q [B,H,Tq,Dh], k/v [B,H,Tk,Dh]; got "
@@ -108,8 +146,9 @@ def _check(q, k, v, causal, block_q, block_k):
         # puts it at Tk - Tq; the two disagree, so neither is guessed
         raise ValueError(f"causal flash attention needs Tq == Tk, got "
                          f"({Tq},{Tk})")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[3]} not in {HEAD_DIMS}")
+    _head_width(q.shape[3])
+    if kv_len is not None and not 0 < kv_len <= Tk:
+        raise ValueError(f"kv_len {kv_len} outside (0, {Tk}]")
 
 
 def _check_like(q, **ts):
@@ -119,25 +158,30 @@ def _check_like(q, **ts):
                              f"got {tuple(t.shape)}")
 
 
-def _bwd_tile(qf, kf, vf, dof, lse, delta, iq, jk, bq, bk, causal, scale):
+def _bwd_tile(qf, kf, vf, dof, lse, delta, iq, jk, bq, bk, causal, scale,
+              kv_len=None):
     """One (q block, k block) tile of the backward, as both Pallas kernels
-    compute it: P recomputed from lse, dS = P * (dP - Delta) * scale."""
+    compute it: P recomputed from lse, dS = P * (dP - Delta) * scale; keys
+    at or past `kv_len` masked (P = 0)."""
     qs, ks = slice(iq * bq, (iq + 1) * bq), slice(jk * bk, (jk + 1) * bk)
     s = (qf[:, :, qs] * scale) @ kf[:, :, ks].transpose(-1, -2)
+    k_pos = jk * bk + torch.arange(bk, device=qf.device)[None, :]
     if causal:
         q_pos = iq * bq + torch.arange(bq, device=qf.device)[:, None]
-        k_pos = jk * bk + torch.arange(bk, device=qf.device)[None, :]
         s = torch.where(q_pos >= k_pos, s, NEG_INF)
+    if kv_len is not None:
+        s = torch.where(k_pos < kv_len, s, NEG_INF)
     p = torch.exp(s - lse[:, :, qs])
     dp = dof[:, :, qs] @ vf[:, :, ks].transpose(-1, -2)
     return p, p * (dp - delta[:, :, qs]) * scale
 
 
 def _bwd_dq_reference(q, k, v, out, lse, do, causal, scale, block_q,
-                      block_k) -> Tuple[torch.Tensor, torch.Tensor]:
+                      block_k, kv_len=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain K2 (`_bwd_dq_kernel`) with its Delta prologue: per q block, walk
-    the k blocks up to the causal frontier. Returns (dq in q's dtype,
-    delta [B,H,Tq] f32)."""
+    the k blocks up to the causal frontier, keys at or past `kv_len`
+    masked. Returns (dq in q's dtype, delta [B,H,Tq] f32)."""
     Tq, Tk = q.shape[2], k.shape[2]
     bq, bk = min(block_q, Tq), min(block_k, Tk)
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
@@ -150,7 +194,7 @@ def _bwd_dq_reference(q, k, v, out, lse, do, causal, scale, block_q,
             num_kb = min(num_kb, ((iq + 1) * bq + bk - 1) // bk)
         for jk in range(num_kb):
             _, ds = _bwd_tile(qf, kf, vf, dof, lse, delta, iq, jk, bq, bk,
-                              causal, scale)
+                              causal, scale, kv_len)
             dq[:, :, iq * bq:(iq + 1) * bq] += ds @ kf[:, :, jk * bk:
                                                        (jk + 1) * bk]
     return dq.to(q.dtype), delta[..., 0]
@@ -244,7 +288,7 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def _launch(q, k, v, causal, scale):
+def _launch(q, k, v, causal, scale, kv_len):
     from ray_tpu_torch.ops import _kernels
 
     (q, k, v), strides = _kernel_inputs(q, k, v)
@@ -256,13 +300,13 @@ def _launch(q, k, v, causal, scale):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _raise_on(lib.rt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, H, Tq, Tk, Dh, *strides, int(causal),
+        lse.data_ptr(), B, H, Tq, Tk, kv_len, Dh, *strides, int(causal),
         ctypes.c_float(scale), _DTYPES[q.dtype], stream), "flash_fwd")
     flash_attention.launches += 1
     return out, lse
 
 
-def _launch_bwd_dq(q, k, v, out, lse, do, causal, scale):
+def _launch_bwd_dq(q, k, v, out, lse, do, causal, scale, kv_len):
     from ray_tpu_torch.ops import _kernels
 
     (q, k, v, out, do), strides = _kernel_inputs(q, k, v, out, do)
@@ -275,9 +319,9 @@ def _launch_bwd_dq(q, k, v, out, lse, do, causal, scale):
     _raise_on(lib.rt_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
-        B, H, Tq, k.shape[2], Dh, (ctypes.c_int * len(strides))(*strides),
-        int(causal), ctypes.c_float(scale), _DTYPES[q.dtype], stream),
-        "flash_bwd_dq")
+        B, H, Tq, k.shape[2], kv_len, Dh,
+        (ctypes.c_int * len(strides))(*strides), int(causal),
+        ctypes.c_float(scale), _DTYPES[q.dtype], stream), "flash_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     return dq, delta
 
@@ -312,31 +356,45 @@ def _route(q) -> str:
 def flash_attention_fwd(q, k, v, causal: bool = True,
                         scale: Optional[float] = None,
                         block_q: int = DEFAULT_BLOCK_Q,
-                        block_k: int = DEFAULT_BLOCK_K
+                        block_k: int = DEFAULT_BLOCK_K,
+                        kv_len: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1: (out [B,H,Tq,Dh], lse [B,H,Tq] f32). block_q/block_k set the
-    divisibility contract of the JAX kernel; the CUDA kernel picks its own
-    tiles."""
-    _check(q, k, v, causal, block_q, block_k)
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    """K1: (out [B,H,Tq,Dh], lse [B,H,Tq] f32), keys at or past `kv_len`
+    (default Tk) masked. block_q/block_k set the divisibility contract of
+    the JAX kernel; the CUDA kernel picks its own tiles."""
+    _check(q, k, v, causal, block_q, block_k, kv_len)
+    dh = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    q, k, v = _pad_heads(q, k, v)
     if _route(q) == "cuda":
-        return _launch(q, k, v, causal, scale)
-    return flash_attention_reference(q, k, v, causal, scale, block_k)
+        out, lse = _launch(q, k, v, causal, scale,
+                           k.shape[2] if kv_len is None else kv_len)
+    else:
+        out, lse = flash_attention_reference(q, k, v, causal, scale, block_k,
+                                             kv_len)
+    return (*_unpad_heads(dh, out), lse)
 
 
 def flash_attention_bwd_dq(q, k, v, out, lse, do, causal: bool = True,
                            scale: Optional[float] = None,
                            block_q: int = DEFAULT_BLOCK_Q,
-                           block_k: int = DEFAULT_BLOCK_K
+                           block_k: int = DEFAULT_BLOCK_K,
+                           kv_len: Optional[int] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2: (dq in q's dtype, delta [B,H,Tq] f32), delta = rowsum(dO * O)."""
-    _check(q, k, v, causal, block_q, block_k)
+    """K2: (dq in q's dtype, delta [B,H,Tq] f32), delta = rowsum(dO * O);
+    keys at or past `kv_len` (default Tk) masked, as in K1."""
+    _check(q, k, v, causal, block_q, block_k, kv_len)
     _check_like(q, out=out, do=do)
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    dh = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    q, k, v, out, do = _pad_heads(q, k, v, out, do)
     if _route(q) == "cuda":
-        return _launch_bwd_dq(q, k, v, out, lse, do, causal, scale)
-    return _bwd_dq_reference(q, k, v, out, lse, do, causal, scale, block_q,
-                             block_k)
+        dq, delta = _launch_bwd_dq(q, k, v, out, lse, do, causal, scale,
+                                   k.shape[2] if kv_len is None else kv_len)
+    else:
+        dq, delta = _bwd_dq_reference(q, k, v, out, lse, do, causal, scale,
+                                      block_q, block_k, kv_len)
+    return (*_unpad_heads(dh, dq), delta)
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
@@ -347,11 +405,15 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
     """K3: (dk, dv) in k's and v's dtypes, from K2's delta."""
     _check(q, k, v, causal, block_q, block_k)
     _check_like(q, do=do)
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    dh = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    q, k, v, do = _pad_heads(q, k, v, do)
     if _route(q) == "cuda":
-        return _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
-    return _bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale,
-                              block_q, block_k)
+        dk, dv = _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    else:
+        dk, dv = _bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale,
+                                    block_q, block_k)
+    return _unpad_heads(dh, dk, dv)
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = True,

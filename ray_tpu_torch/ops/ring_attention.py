@@ -23,8 +23,14 @@ Each rank's ring schedule is a generator (`ring_forward`,
 receives the previous rank's: `drive` runs one with an exchange (the
 distributed path's `Comm.exchange`), `drive_virtual` runs sp of them in one
 process with an in-process rotation (one card standing in for a ring).
-The ring takes the kernels' shapes: Dh in {32, 64, 128} and T/sp divisible
-by min(128, T/sp); outside them it raises `ValueError`.
+The ring takes any head dim up to 128 (the flash wrappers pad it to the
+kernels' widths) and any chunk length: a chunk longer than a block that
+does not divide into blocks of 128 is zero-padded at its end to the next
+multiple, K1 and K2 mask the padded keys on the non-causal pairs with
+their `kv_len` bound (on the causal diagonal, causality already hides them
+from the real queries), and the padded rows are dropped. Past Dh = 128 it
+raises `ValueError`. The accounted wire bytes are the JAX package's, of
+the unpadded chunks.
 
 `ring_attention` and `ulysses_attention` take DTensors sharded
 ("batch", "heads", "seq", None) and run the local functions through
@@ -82,15 +88,36 @@ def _chunk_update(q, kc, vc, m, l, acc, scale, q_off, k_off, causal):
 # ---------------------------------------------------------------------------
 
 def check_ring_shape(t_local: int, head_dim: int) -> None:
-    """The kernels' shape contract on a chunk of `t_local` positions."""
-    if head_dim not in HEAD_DIMS:
+    """The kernels' shape contract on a chunk of `t_local` positions: any
+    length (`_padded_len`), head dims up to 128."""
+    if head_dim > HEAD_DIMS[-1]:
         raise ValueError(f"ring attention runs the flash kernels: head dim "
-                         f"{head_dim} not in {HEAD_DIMS}")
-    block = min(DEFAULT_BLOCK_Q, t_local)
-    if t_local % block:
-        raise ValueError(f"ring attention runs the flash kernels: a chunk "
-                         f"of {t_local} positions must divide into blocks "
-                         f"of {block}")
+                         f"{head_dim} > {HEAD_DIMS[-1]}, where their "
+                         f"register budget ends")
+
+
+def _padded_len(n: int) -> int:
+    """A chunk of n positions padded to the flash kernels' block contract:
+    n itself up to a block, else the next multiple of the block."""
+    block = DEFAULT_BLOCK_Q
+    return n if n <= block else -(-n // block) * block
+
+
+def _pad_seq(t: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """t [B, H, n, ...] zero-padded at the end of dim 2 to n_pad rows."""
+    n = t.shape[2]
+    if n == n_pad:
+        return t
+    pad = [0, 0] * (t.dim() - 3) + [0, n_pad - n]
+    return torch.nn.functional.pad(t, pad)
+
+
+def _pad_chunk(*ts) -> tuple:
+    """One chunk's tensors [B, H, n, ...] padded to `_padded_len(n)`, and
+    the kv_len bound of its padded keys (None where nothing is padded)."""
+    n = ts[0].shape[2]
+    n_pad = _padded_len(n)
+    return n if n_pad > n else None, [_pad_seq(t, n_pad) for t in ts]
 
 
 def _pair(rank: int, src: int, causal: bool):
@@ -113,18 +140,23 @@ def _merge(acc, lse, out, lse_i):
 def ring_forward(q, k, v, rank: int, sp: int, causal: bool, scale: float):
     """Rank `rank`'s forward (a generator): yields [k, v] it passes on and
     receives the previous rank's, sp - 1 times; returns (out in q's dtype,
-    lse [B, H, n] f32), q, k, v being this rank's chunks [B, H, n, Dh]."""
+    lse [B, H, n] f32), q, k, v being this rank's chunks [B, H, n, Dh].
+    A ragged chunk travels padded (`_padded_len`), its padded keys masked
+    by `kv_len` on the non-causal pairs."""
+    n = q.shape[2]
+    kv_len, (q, k, v) = _pad_chunk(q, k, v)
     acc = lse = None
     k_cur, v_cur = k, v
     for step in range(sp):
         src = (rank - step) % sp
         live, mask = _pair(rank, src, causal)
         if live:
-            o, l = flash_attention_fwd(q, k_cur, v_cur, mask, scale)
+            o, l = flash_attention_fwd(q, k_cur, v_cur, mask, scale,
+                                       kv_len=None if mask else kv_len)
             acc, lse = _merge(acc, lse, o, l)
         if step != sp - 1:
             k_cur, v_cur = yield [k_cur, v_cur]
-    return acc.to(q.dtype), lse
+    return acc[:, :, :n].to(q.dtype), lse[:, :, :n]
 
 
 def ring_backward(q, k, v, out, lse, do, rank: int, sp: int, causal: bool,
@@ -132,7 +164,11 @@ def ring_backward(q, k, v, out, lse, do, rank: int, sp: int, causal: bool,
     """Rank `rank`'s backward (a generator): K2 and K3 on each live pair
     with the global out and lse. Yields [k, v, dk, dv] sp - 1 times and
     [dk, dv] once more (the accumulators' last hop home); returns (dq, dk,
-    dv) in the inputs' dtypes."""
+    dv) in the inputs' dtypes. A ragged chunk is padded as in
+    `ring_forward`: its padded rows carry dO = 0 (so K3 needs no mask) and
+    their gradients are dropped."""
+    n = q.shape[2]
+    kv_len, (q, k, v, out, do, lse) = _pad_chunk(q, k, v, out, do, lse)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros_like(dk)
@@ -141,8 +177,9 @@ def ring_backward(q, k, v, out, lse, do, rank: int, sp: int, causal: bool,
         src = (rank - step) % sp
         live, mask = _pair(rank, src, causal)
         if live:
-            dq_i, delta = flash_attention_bwd_dq(q, k_cur, v_cur, out, lse,
-                                                 do, mask, scale)
+            dq_i, delta = flash_attention_bwd_dq(
+                q, k_cur, v_cur, out, lse, do, mask, scale,
+                kv_len=None if mask else kv_len)
             dk_i, dv_i = flash_attention_bwd_dkv(q, k_cur, v_cur, do, lse,
                                                  delta, mask, scale)
             dq = dq + dq_i.float()
@@ -152,7 +189,8 @@ def ring_backward(q, k, v, out, lse, do, rank: int, sp: int, causal: bool,
             k_cur, v_cur, dk, dv = yield [k_cur, v_cur, dk, dv]
         else:
             dk, dv = yield [dk, dv]
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return tuple(t[:, :, :n].to(dtype) for t, dtype in
+                 ((dq, q.dtype), (dk, k.dtype), (dv, v.dtype)))
 
 
 def drive(schedule, exchange: Callable[[List[torch.Tensor]], list]):
@@ -286,6 +324,9 @@ def _on_sp_shards(local_fn, q, k, v, mesh, axis, causal, scale):
 
     names = tuple(mesh.mesh_dim_names)
     sp = mesh.size(names.index(axis))
+    if q.shape[2] % sp:
+        raise ValueError(f"{local_fn.__name__}: the sequence ({q.shape[2]}) "
+                         f"must divide by sp ({sp})")
     if local_fn is ring_attention_local:
         check_ring_shape(q.shape[2] // sp, q.shape[3])
     if not isinstance(q, DTensor):

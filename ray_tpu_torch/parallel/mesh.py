@@ -403,6 +403,11 @@ def current_mesh():
     return _ctx.mesh
 
 
+def current_rules() -> dict:
+    """The logical rules active in this thread (a copy)."""
+    return dict(_ctx.rules)
+
+
 def with_current_mesh(fn):
     """fn, run under the mesh and rules active now from whichever thread
     calls it. The autograd engine runs the backward of CUDA tensors, and so
@@ -557,6 +562,6 @@ __all__ = ["MESH_AXES", "DP_SUB_AXES", "HIER_MESH_AXES", "MeshConfig",
            "mesh_axes", "dp_axis_names", "is_hierarchical_mesh",
            "hier_topology", "hier_groups", "rules_for_mesh", "LogicalRules",
            "DEFAULT_RULES", "PartitionSpec", "P", "Sharding", "use_mesh",
-           "current_mesh", "with_current_mesh", "logical_to_spec",
+           "current_mesh", "current_rules", "with_current_mesh", "logical_to_spec",
            "spec_to_placements", "suppress_constraints", "constrain",
            "local_window", "axis_size", "topology_from_devices"]

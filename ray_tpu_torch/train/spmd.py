@@ -27,7 +27,11 @@ Several devices run one process a device, in one of two ways:
   all-gather back) before the optimizer runs.
 A mesh with sp shards the activations' sequence axis (the models'
 `constrain(..., "seq", ...)` points; attention runs as ring or Ulysses
-attention, `ops.ring_attention`); the pipeline axis (pp) is ROADMAP item 11.
+attention, `ops.ring_attention`). A mesh with pp trains through
+`compile_pipeline_train`: the block stack runs as a GPipe pipeline
+(`parallel.pipeline`), each rank holding its stage's layers; the same
+program runs its stages in one process on one device when given a
+`MeshConfig` of pp alone.
 
 `save_state_sharded` and `restore_state_sharded` write and read a whole
 `TrainState` in the JAX package's sharded-checkpoint format
@@ -267,7 +271,8 @@ def _one_device(mesh, device) -> torch.device:
                 "training on several devices in one process is not ported: "
                 "the port runs one process a device, on a "
                 "parallel.mesh.build_mesh mesh (dp, fsdp, sp, tp, ep) or "
-                "build_hierarchical_mesh; pp meshes are ROADMAP item 11")
+                "build_hierarchical_mesh; pp meshes are ROADMAP item 11: "
+                "they train through compile_pipeline_train")
         device = device if device is not None else devs[0]
     return default_device(device)
 
@@ -283,12 +288,19 @@ class _Sharded:
     gradients through DTensor, each gradient brought to its param's
     placements (the reduction GSPMD inserts)."""
 
-    def __init__(self, mesh):
-        if "pp" in mesh_lib.mesh_axes(mesh):
+    def __init__(self, mesh, rules=None, pipeline: bool = False):
+        axes = mesh_lib.mesh_axes(mesh)
+        if "pp" in axes and not pipeline:
             raise NotImplementedError(
-                "a mesh with pp > 1 is ROADMAP item 11; build_mesh meshes "
-                "of dp, fsdp, sp, tp and ep train here")
-        self.mesh = mesh
+                "a mesh with pp > 1 is ROADMAP item 11: it trains through "
+                "compile_pipeline_train; build_mesh meshes of dp, fsdp, sp, "
+                "tp and ep train here")
+        if pipeline and {"sp", "ep"} & set(axes):
+            raise NotImplementedError(
+                f"pp together with {sorted({'sp', 'ep'} & set(axes))} is "
+                f"ROADMAP item 5's remainder; compile_pipeline_train "
+                f"composes pp with dp, fsdp and tp")
+        self.mesh, self.rules = mesh, rules
         self.batch_sharding = mesh_lib.Sharding(
             mesh, mesh_lib.spec_to_placements(mesh, mesh_lib.P(("dp",
                                                                 "fsdp"))))
@@ -306,7 +318,7 @@ class _Sharded:
         params = _tree_map(lambda p: p.detach().requires_grad_(),
                            state.params)
         leaves = _leaves(params)
-        with torch.enable_grad(), mesh_lib.use_mesh(self.mesh):
+        with torch.enable_grad(), mesh_lib.use_mesh(self.mesh, self.rules):
             loss = loss_fn(params, self.batch(batch))
             loss = loss.redistribute(self.mesh,
                                      (Replicate(),) * self.mesh.ndim)
@@ -441,7 +453,8 @@ def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
                   init_params_fn: Callable[..., Tree], mesh=None,
                   optimizer: Optional[AdamW] = None, device=None,
                   grad_quantize=None, phase_timing: bool = False,
-                  params_spec: Optional[Tree] = None) -> CompiledTrain:
+                  params_spec: Optional[Tree] = None, rules=None,
+                  pipeline: bool = False) -> CompiledTrain:
     """Build init and step functions for any model.
 
     loss_fn(params, batch) -> scalar; init_params_fn(generator, device=...)
@@ -454,8 +467,9 @@ def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
     `PartitionSpec`s matching the params; `param_specs` of the model
     families) places params and moments, the batch is split over
     ``("dp", "fsdp")``, and the model's `constrain` calls read the default
-    logical rules; `batch_sharding` and `state_sharding` say where
-    everything lives.
+    logical rules (with `rules` over them); `batch_sharding` and
+    `state_sharding` say where everything lives. `pipeline=True` is
+    `compile_pipeline_train`'s: the mesh may then have pp.
 
     With `mesh` a hierarchical `DeviceMesh` (data parallel), each rank uses
     its rows of the batch, and the fused `step_fn` averages the gradients
@@ -487,7 +501,7 @@ def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
             if params_spec is None:
                 raise ValueError("a build_mesh mesh needs params_spec (the "
                                  "model's param_specs)")
-            sharded = _Sharded(mesh)
+            sharded = _Sharded(mesh, rules, pipeline)
     else:
         device = _one_device(mesh, device)
 
@@ -763,3 +777,63 @@ def compile_gpt2_train(cfg, mesh=None, optimizer=None, device=None,
 
     return compile_model_train(gpt2, cfg, mesh, optimizer, device,
                                grad_quantize, phase_timing)
+
+
+def compile_pipeline_train(model_mod, cfg, mesh, n_microbatches: int,
+                           optimizer=None, rules=None,
+                           device=None) -> CompiledTrain:
+    """Pipeline-parallel training (the JAX package's
+    `compile_pipeline_train`): the block stack runs as a GPipe microbatch
+    pipeline over the mesh's `pp` axis (`parallel.pipeline`), while the
+    embedding, the unembed and the loss run as on any mesh, replicated
+    over pp. For models whose blocks are layer-stacked with a
+    `_block(x, bp, cfg)` body (gpt2, llama).
+
+    `mesh` is either
+    - a `build_mesh` mesh with pp (composed with dp, fsdp and tp): the
+      stacked layer dim is split over pp (the rule "layers": "pp"), so each
+      rank holds only its stage's layers, and this rank runs its stage; or
+    - a `MeshConfig` (or mapping) of pp alone: its F stages run in this
+      process on `device`, their hops in memory (one card standing in for
+      a pipeline), the same schedule and arithmetic as F ranks."""
+    from ray_tpu_torch.models.lm import cross_entropy, split_lm_batch
+    from ray_tpu_torch.parallel.pipeline import (make_stage_fn,
+                                                 pipeline_apply, stack_stages)
+
+    virtual = not isinstance(mesh, DeviceMesh)
+    if virtual:
+        config = mesh if isinstance(mesh, mesh_lib.MeshConfig) \
+            else mesh_lib.MeshConfig(**dict(mesh))
+        others = {a: v for a, v in config.degrees().items()
+                  if a != "pp" and v != 1}
+        if others:
+            raise ValueError(f"virtual stages share one device: a "
+                             f"MeshConfig of pp alone, got {others} too; "
+                             f"other axes need a build_mesh mesh")
+        F = config.pp
+    else:
+        F = mesh_lib.axis_size(mesh, "pp")
+    if cfg.n_layer % max(F, 1):
+        raise ValueError(f"n_layer={cfg.n_layer} not divisible by pp={F}")
+    remat = getattr(cfg, "remat_policy", "full") if cfg.remat else None
+    stage_fn = make_stage_fn(lambda x, bp: model_mod._block(x, bp, cfg),
+                             remat)
+
+    def loss_fn(params, batch):
+        inputs, targets = split_lm_batch(batch)
+        x = model_mod.embed(params, inputs, cfg)
+        x = pipeline_apply(stage_fn, stack_stages(params["blocks"], F), x,
+                           n_microbatches=n_microbatches,
+                           mesh=None if virtual else mesh)
+        return cross_entropy(model_mod.unembed(params, x, cfg), targets)
+
+    init = functools.partial(model_mod.init_params, cfg=cfg)
+    if virtual:
+        return compile_train(loss_fn, init, optimizer=optimizer,
+                             device=device)
+    rules = {**(rules or {}), "layers": "pp"}
+    with mesh_lib.use_mesh(mesh, rules):
+        spec = model_mod.param_specs(cfg)
+    return compile_train(loss_fn, init, mesh=mesh, optimizer=optimizer,
+                         device=device, params_spec=spec, rules=rules,
+                         pipeline=True)

@@ -773,11 +773,12 @@ def _count_plain():
 
 
 def ring_ranks(rank, world, tmp, cases):
-    """Each case (impl, mesh config, causal): ring or Ulysses attention on
-    DTensors of the seeded q, k, v sharded (batch, heads, seq, None), its
-    gradients against dO, the bytes accounted and the plain kernels'
-    calls on this rank. Then the shape contract on the first case's mesh:
-    what each out-of-contract call raised."""
+    """Each case (impl, mesh config, causal, (T, Dh)): ring or Ulysses
+    attention on DTensors of the seeded q, k, v of that shape (inputs
+    "q{T}x{Dh}", ...) sharded (batch, heads, seq, None), its gradients
+    against dO, the bytes accounted and the plain kernels' calls on this
+    rank. Then the shape contract on the first case's mesh: what a head
+    dim past 128 and a sequence that sp does not divide raised."""
     import torch.distributed as dist
     from torch.distributed.tensor import distribute_tensor
 
@@ -790,12 +791,12 @@ def ring_ranks(rank, world, tmp, cases):
     _default_group(rank, world, tmp)
     seen = _count_plain()
     out = {}
-    for impl, config, causal in cases:
+    for impl, config, causal, (T, Dh) in cases:
         mesh = build_mesh(config, device_type="cpu")
         placements = spec_to_placements(
             mesh, logical_to_spec("batch", "heads", "seq", None))
-        q, k, v, do = (distribute_tensor(torch.from_numpy(inp[n]), mesh,
-                                         placements)
+        q, k, v, do = (distribute_tensor(torch.from_numpy(inp[f"{n}{T}x{Dh}"]),
+                                         mesh, placements)
                        for n in ("q", "k", "v", "do"))
         q, k, v = (t.requires_grad_() for t in (q, k, v))
         H.BYTES.clear()
@@ -803,22 +804,21 @@ def ring_ranks(rank, world, tmp, cases):
         with use_mesh(mesh):
             o = getattr(R, f"{impl}_attention")(q, k, v, causal=causal)
         grads = torch.autograd.grad(o, (q, k, v), do)
-        out[(impl, tuple(sorted(config.items())), causal)] = dict(
+        out[(impl, tuple(sorted(config.items())), causal, (T, Dh))] = dict(
             out=o.full_tensor().detach(),
             grads=[g.full_tensor() for g in grads], bytes=dict(H.BYTES),
             calls=dict(seen), sp_rank=mesh.get_group("sp").rank())
     mesh = build_mesh(cases[0][1], device_type="cpu")
     sp = cases[0][1]["sp"]
-    raised = []
-    for T, Dh in ((200 * sp, 32), (32 * sp, 48)):   # chunks of 200; Dh 48
+    out["contract"] = []
+    for T, Dh in ((32 * sp, 160), (32 * sp + 1, 32)):
         q = torch.zeros(2, 4, T, Dh)
         try:
             with use_mesh(mesh):
                 R.ring_attention(q, q, q)
-            raised.append(None)
+            out["contract"].append(None)
         except ValueError as e:
-            raised.append(str(e))
-    out["contract"] = raised
+            out["contract"].append(str(e))
     dist.destroy_process_group()
     return out
 
@@ -941,5 +941,116 @@ def checkpoint_ranks(rank, world, tmp):
     dist.barrier()
     out["two_one_two"] = state_numpy(spmd.restore_state_sharded(
         one, _ckpt_train({"tp": 2})))
+    dist.destroy_process_group()
+    return out
+
+
+# -------------------------------------------------------------- pipelines
+PIPE_M = 4          # microbatches
+
+
+def pipe_family(name):
+    """(module, f32 config) of the JAX package's pipeline tests: gpt2-tiny
+    at 4 layers, llama-tiny, no remat."""
+    return family(name, remat=False,
+                  **({"n_layer": 4} if name == "gpt2" else {}))
+
+
+def pipe_params(mod, cfg, flat, mesh):
+    """Params from numpy leaves, placed by param_specs under the rule
+    "layers": "pp" (each stage's layers on its pp ranks)."""
+    from ray_tpu_torch.parallel.mesh import use_mesh
+    from ray_tpu_torch.train import spmd
+
+    with use_mesh(mesh, {"layers": "pp"}):
+        specs = mod.param_specs(cfg)
+    return spmd.shard_params(mod.params_from_numpy(flat, cfg, "cpu"), mesh,
+                             specs)
+
+
+def pipe_logits(mod, cfg, params, tokens, F, mesh=None):
+    """embed -> pipeline_apply (PIPE_M microbatches, F stages) -> unembed,
+    without gradients, as the JAX package's pipeline tests run it; logits
+    gathered."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.parallel import pipeline as PP
+    from ray_tpu_torch.parallel.mesh import use_mesh
+
+    stage_fn = PP.make_stage_fn(lambda x, bp: mod._block(x, bp, cfg),
+                                remat=False)
+    with torch.no_grad(), use_mesh(mesh, {"layers": "pp"}):
+        x = mod.embed(params, tokens, cfg)
+        x = PP.pipeline_apply(stage_fn, PP.stack_stages(params["blocks"], F),
+                              x, n_microbatches=PIPE_M, mesh=mesh)
+        out = mod.unembed(params, x, cfg)
+    return out.full_tensor() if isinstance(out, DTensor) else out
+
+
+def pipe_weights(inp, name) -> dict:
+    prefix = f"w/{name}/"
+    return {k[len(prefix):]: v for k, v in inp.items()
+            if k.startswith(prefix)}
+
+
+def pipe_train(name, mesh, opt):
+    """compile_pipeline_train of family `name` on `mesh` (a build_mesh
+    mesh, or a MeshConfig of pp alone)."""
+    from ray_tpu_torch.train import spmd
+
+    mod, cfg = pipe_family(name)
+    return mod, cfg, spmd.compile_pipeline_train(mod, cfg, mesh, PIPE_M,
+                                                 optimizer=opt, device="cpu")
+
+
+def pipeline_ranks(rank, world, tmp, fwd, traj, steps, restore=None):
+    """Each (name, config) of `fwd`: the pipelined logits from the numpy
+    weights inp["w/<name>/..."]; of `traj`: `steps` steps through
+    compile_pipeline_train ([(loss, grad_norm, step)], gathered params on
+    rank 0). On two ranks (pp=2), also gpt2's loss and gathered gradients
+    at those weights (grad_fn), and its state after the trajectory saved
+    to tmp/port-pp with both ranks' leaves. With `restore` (a checkpoint
+    of gpt2's state), it restored onto the first gpt2 trajectory's
+    program, leaves gathered."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import axis_size, build_mesh
+    from ray_tpu_torch.train import spmd
+
+    inp = _inputs(tmp)
+    _default_group(rank, world, tmp)
+    tokens = torch.from_numpy(inp["tokens"])
+    out = {}
+    for name, config in fwd:
+        mod, cfg = pipe_family(name)
+        mesh = build_mesh(config, device_type="cpu")
+        params = pipe_params(mod, cfg, pipe_weights(inp, name), mesh)
+        out[("fwd", name, tuple(sorted(config.items())))] = pipe_logits(
+            mod, cfg, params, tokens[:, :-1], axis_size(mesh, "pp"), mesh)
+    for name, config in traj:
+        mesh = build_mesh(config, device_type="cpu")
+        opt = spmd.default_optimizer(lr=1e-3, warmup=2, total_steps=20)
+        mod, cfg, train = pipe_train(name, mesh, opt)
+        if restore is not None and name == "gpt2" and "restored" not in out:
+            out["restored"] = state_numpy(spmd.restore_state_sharded(
+                restore, train))
+        params = pipe_params(mod, cfg, pipe_weights(inp, name), mesh)
+        state = spmd.TrainState(0, params, opt.init(params))
+        key = ("traj", name, tuple(sorted(config.items())))
+        if world == 2:
+            loss, grads = train.grad_fn(state, {"tokens": tokens})
+            out["grads"] = (loss.item(),
+                            mod.params_to_numpy(spmd.unshard(grads)))
+        hist = []
+        for _ in range(steps):
+            state, m = train.step_fn(state, {"tokens": tokens})
+            hist.append((float(m["loss"]), float(m["grad_norm"]),
+                         m["step"]))
+        end = mod.params_to_numpy(spmd.unshard(state.params))
+        out[key] = (hist, end if rank == 0 else None)
+        if world == 2:
+            spmd.save_state_sharded(state, os.path.join(tmp, "port-pp"),
+                                    world_size=world, process_index=rank)
+            out["saved"] = state_numpy(state)
     dist.destroy_process_group()
     return out

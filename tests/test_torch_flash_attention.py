@@ -87,8 +87,10 @@ def test_flash_rejects_causal_unequal_lengths():
 
 
 def test_flash_rejects_unsupported_head_dim():
-    q, k, v = _t(*_qkv(T=64, D=48))
-    with pytest.raises(ValueError, match="head dim"):
+    # head dims up to 128 are padded to the kernels' widths; past 128 the
+    # kernels' register budget ends
+    q, k, v = _t(*_qkv(T=64, D=160))
+    with pytest.raises(ValueError, match="head dim 160"):
         P.flash_attention(q, k, v)
 
 
@@ -232,3 +234,91 @@ def test_flash_bf16_grads_close_to_f32():
         assert g.dtype == torch.bfloat16
         np.testing.assert_allclose(g.float().numpy(), w.numpy(), atol=1e-2,
                                    rtol=1e-2)
+
+
+# ------------------------------------- head dims off the kernels' widths
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [48, 80])
+def test_padded_head_dim_matches_pallas_kernels(causal, D):
+    # Dh 48 and 80 are zero-padded to 64 and 128 with 1/sqrt(Dh) kept: the
+    # same K1, K2, K3 as the Pallas kernels at that Dh (interpret mode)
+    q, k, v, do = _fwd_bwd_inputs(256, D, seed=17)
+    scale = 1.0 / np.sqrt(D)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    j_out, j_lse = J._fwd(jq, jk, jv, causal, scale, 128, 128)
+    out, lse = P.flash_attention_fwd(*_t(q, k, v), causal=causal)
+    assert out.shape == q.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse)[..., 0], **TOL)
+    want = J._bwd(causal, scale, 128, 128, (jq, jk, jv, j_out, j_lse),
+                  jnp.asarray(do))
+    got = P.flash_attention_bwd(*_t(q, k, v), out, lse, *_t(do), causal)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == q.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL_GRAD,
+                                   err_msg=f"d{name}")
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    grads = torch.autograd.grad(P.flash_attention(tq, tk, tv, causal),
+                                (tq, tk, tv), torch.from_numpy(do))
+    for g, w in zip(grads, got):
+        assert torch.equal(g, w)
+
+
+def test_padded_head_dim_runs_the_kernels_at_their_width(monkeypatch):
+    seen = []
+    orig = P.flash_attention_reference
+
+    def spy(q, *a, **kw):
+        seen.append(q.shape[-1])
+        return orig(q, *a, **kw)
+
+    monkeypatch.setattr(P, "flash_attention_reference", spy)
+    for D in (16, 48, 80, 128):
+        q, k, v = _t(*_qkv(T=64, D=D))
+        P.flash_attention_fwd(q, k, v)
+    assert seen == [32, 64, 128, 128]
+
+
+# --------------------------------------------------- the kv_len bound
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,T,n", [(False, 256, 250), (False, 256, 130),
+                                        (True, 256, 200), (False, 128, 96)])
+def test_kv_len_masks_the_padded_keys(dtype, causal, T, n):
+    # keys past kv_len are zero padding (the ring's ragged chunk): K1 and K2
+    # with the bound equal attention over the n real keys; K3 unbounded
+    # gives the real keys' dK, dV (the padded query rows carry dO = 0)
+    q, k, v, do = _fwd_bwd_inputs(T, 64, seed=18)
+    q, k, v, do = (x.to(dtype) for x in _t(q, k, v, do))
+    rows = slice(0, n)
+    k[:, :, n:] = 0
+    v[:, :, n:] = 0
+    do[:, :, n:] = 0
+    out, lse = P.flash_attention_fwd(q, k, v, causal, kv_len=n)
+    dq, delta = P.flash_attention_bwd_dq(q, k, v, out, lse, do, causal,
+                                         kv_len=n)
+    dk, dv = P.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    # causal: the real query rows < n, from which causality hides keys >= n
+    nq = n if causal else T
+    qs = q[:, :, :nq].float().requires_grad_()
+    ks, vs = (t[:, :, rows].float().requires_grad_() for t in (k, v))
+    want = P.mha_reference(qs, ks, vs, causal=causal)
+    tol = TOL if dtype == torch.float32 else dict(atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(out[:, :, :nq].float().numpy(),
+                               want.detach().numpy(), **tol)
+    wq, wk, wv = torch.autograd.grad(want, (qs, ks, vs),
+                                     do[:, :, :nq].float())
+    gtol = TOL_GRAD if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    for g, w in ((dq[:, :, :nq], wq), (dk[:, :, rows], wk),
+                 (dv[:, :, rows], wv)):
+        np.testing.assert_allclose(g.float().numpy(), w.numpy(), **gtol)
+
+
+def test_kv_len_is_checked():
+    q, k, v = _t(*_qkv(T=128))
+    for bad in (0, 129):
+        with pytest.raises(ValueError, match="kv_len"):
+            P.flash_attention_fwd(q, k, v, False, kv_len=bad)

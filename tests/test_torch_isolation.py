@@ -53,6 +53,7 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.util.collective.dist_group",
                  "ray_tpu_torch.util.collective.collective",
                  "ray_tpu_torch.ops.ring_attention",
+                 "ray_tpu_torch.parallel.pipeline",
                  "ray_tpu_torch.train.checkpoint",
                  "ray_tpu_torch.train.config", "chip_smoke"):
         assert want in res["imported"]

@@ -15,8 +15,14 @@ ring_attention.py`) on the same seeded inputs.
   kernels called rank + 1 times (causal) on sp rank `rank`; the bytes
   accounted, op names and all, equal to the JAX package's for the same
   shapes;
-- with no mesh both are `mha_reference` (the JAX rule); a shape outside
-  the kernels' contract raises on every rank.
+- the ring past the kernels' own shapes: head dims 48 and 80 (padded to
+  the kernels' widths) and chunks of 96 and 250 positions (250 padded to
+  256, the padded keys masked by K1's and K2's `kv_len`): causal Dh 48 in
+  chunks of 250 on sp=4 and non-causal Dh 80 in chunks of 96 on sp=2
+  within the same bounds of JAX's ring; the virtual ring at both head dims
+  and chunk lengths, causal and not, against `mha_reference`;
+- with no mesh both are `mha_reference` (the JAX rule); a head dim past
+  128, or a sequence that sp does not divide, raises on every rank.
 """
 
 import importlib
@@ -39,20 +45,27 @@ JR = importlib.import_module("ray_tpu.ops.ring_attention")
 TOL = dict(atol=2e-5, rtol=1e-4)
 TOL_GRAD = dict(atol=5e-4, rtol=1e-3)
 B, H, T, D = 2, 4, 64, 32
-FOUR = [("ring", {"sp": 4}, True), ("ring", {"sp": 4}, False),
-        ("ring", {"dp": 2, "sp": 2}, True),
-        ("ulysses", {"sp": 4}, True), ("ulysses", {"dp": 2, "sp": 2}, True)]
-TWO = [("ring", {"sp": 2}, True), ("ulysses", {"sp": 2}, False)]
+SHAPE = (T, D)
+# past the kernels' own shapes: chunks of 250 (padded to 256) causal at
+# Dh 48 on sp=4, chunks of 96 non-causal at Dh 80 on sp=2 (the virtual
+# ring takes the other combinations against the dense reference)
+FOUR = [("ring", {"sp": 4}, True, SHAPE), ("ring", {"sp": 4}, False, SHAPE),
+        ("ring", {"dp": 2, "sp": 2}, True, SHAPE),
+        ("ulysses", {"sp": 4}, True, SHAPE),
+        ("ulysses", {"dp": 2, "sp": 2}, True, SHAPE),
+        ("ring", {"sp": 4}, True, (1000, 48))]
+TWO = [("ring", {"sp": 2}, True, SHAPE), ("ulysses", {"sp": 2}, False, SHAPE),
+       ("ring", {"sp": 2}, False, (192, 80))]
 
 
-def _inputs(seed=5):
+def _inputs(seed=5, shape=SHAPE):
     rng = np.random.default_rng(seed)
-    return {n: rng.standard_normal((B, H, T, D), dtype=np.float32)
+    return {n: rng.standard_normal((B, H, *shape), dtype=np.float32)
             for n in ("q", "k", "v", "do")}
 
 
-def _key(impl, config, causal):
-    return (impl, tuple(sorted(config.items())), causal)
+def _key(impl, config, causal, shape):
+    return (impl, tuple(sorted(config.items())), causal, shape)
 
 
 def _jax(impl, config, causal, inp):
@@ -79,9 +92,12 @@ def _jax(impl, config, causal, inp):
 
 
 def _spawn(tmp_path_factory, world, cases):
+    """{shape: inputs} and the ranks' outputs."""
     tmp = tmp_path_factory.mktemp(f"ring{world}")
-    inp = _inputs()
-    np.savez(tmp / "inputs.npz", **inp)
+    inp = {shape: _inputs(shape=shape) for shape in {c[3] for c in cases}}
+    np.savez(tmp / "inputs.npz", **{f"{n}{t}x{d}": a
+                                    for (t, d), arrs in inp.items()
+                                    for n, a in arrs.items()})
     outs = W.run_ranks(W.ring_ranks, world, str(tmp), cases)
     return inp, outs
 
@@ -158,10 +174,10 @@ def test_ring_forward_launches_one_k1_a_live_pair(monkeypatch):
 
 
 def _check(outs, cases, inp):
-    for impl, config, causal in cases:
-        out, grads, counts = _jax(impl, config, causal, inp)
+    for impl, config, causal, shape in cases:
+        out, grads, counts = _jax(impl, config, causal, inp[shape])
         for o in outs:
-            got = o[_key(impl, config, causal)]
+            got = o[_key(impl, config, causal, shape)]
             np.testing.assert_allclose(got["out"].numpy(), out, **TOL)
             for g, w in zip(got["grads"], grads):
                 np.testing.assert_allclose(g.numpy(), w, **TOL_GRAD)
@@ -174,13 +190,15 @@ def _check(outs, cases, inp):
                                     if live else {})
 
 
-@pytest.mark.parametrize("case", FOUR, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+@pytest.mark.parametrize("case", FOUR,
+                         ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-{c[3]}")
 def test_four_ranks_match_jax(four, case):
     inp, outs = four
     _check(outs, [case], inp)
 
 
-@pytest.mark.parametrize("case", TWO, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+@pytest.mark.parametrize("case", TWO,
+                         ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-{c[3]}")
 def test_two_ranks_match_jax(two, case):
     inp, outs = two
     _check(outs, [case], inp)
@@ -188,14 +206,40 @@ def test_two_ranks_match_jax(two, case):
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_shape_outside_the_contract_raises_on_every_rank(two, four, world):
+    # only a head dim past 128 is outside it: ragged chunks are padded and
+    # head dims up to 128 padded to the kernels' widths
     _, outs = {2: two, 4: four}[world]
     for o in outs:
-        long_chunk, odd_dim = o["contract"]
-        assert "blocks of 128" in long_chunk
-        assert "head dim 48" in odd_dim
-    with pytest.raises(ValueError, match="blocks"):
-        PR.check_ring_shape(200, 64)
-    PR.check_ring_shape(96, 128)
+        big_head, odd_seq = o["contract"]
+        assert "head dim 160 > 128" in big_head
+        assert "must divide by sp" in odd_seq
+    with pytest.raises(ValueError, match="head dim 160"):
+        PR.check_ring_shape(96, 160)
+    for n, dh in ((200, 64), (96, 128), (250, 48), (4000, 80)):
+        PR.check_ring_shape(n, dh)
+
+
+@pytest.mark.parametrize("sp,causal,shape", [
+    (4, True, (1000, 48)), (4, False, (1000, 80)), (2, True, (192, 80)),
+    (2, False, (500, 48)), (4, False, (384, 48)), (2, True, (500, 80))])
+def test_virtual_ring_ragged_matches_dense(sp, causal, shape):
+    inp = {n: torch.from_numpy(a) for n, a in _inputs(sp, shape).items()}
+    q, k, v, do = (inp[n] for n in ("q", "k", "v", "do"))
+    chunks = [t.chunk(sp, dim=2) for t in (q, k, v, do)]
+    scale = 1 / math.sqrt(shape[1])
+    fwd = PR.drive_virtual([PR.ring_forward(
+        chunks[0][r], chunks[1][r], chunks[2][r], r, sp, causal, scale)
+        for r in range(sp)])
+    bwd = PR.drive_virtual([PR.ring_backward(
+        chunks[0][r], chunks[1][r], chunks[2][r], *fwd[r], chunks[3][r], r,
+        sp, causal, scale) for r in range(sp)])
+    out = torch.cat([o for o, _ in fwd], dim=2)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    want = PF.mha_reference(qs, ks, vs, causal=causal)
+    np.testing.assert_allclose(out.numpy(), want.detach().numpy(), **TOL)
+    got = [torch.cat(t, dim=2) for t in zip(*bwd)]
+    for g, w in zip(got, torch.autograd.grad(want, (qs, ks, vs), do)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL_GRAD)
 
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
