@@ -93,7 +93,17 @@ Phases, each reported on its own line:
    microbatches, 5 steps against compile_model_train on one device: loss
    within 0.01 and grad norm within 2 % at every step, K1/K2/K3 launches
    exactly as the schedule gives them (stated before the run), step ms,
-   MFU, peak memory and a profiled step.
+   MFU, peak memory and a profiled step;
+13. the compositions one card holds (phase_compose): (b) GPT-2-125M at
+   phase 6's configuration on the 7-D hierarchical mesh at world 1 over
+   NCCL (full_hierarchical_mesh, every degree 1: the composed path, params
+   and rows as DTensors on the model sub-mesh, the two-level sync on the
+   local shards), 5 steps bit-equal to one device with 24/12/12 launches a
+   step; (a) the tensor-parallel serving engine with both shards on the
+   card at phase 5's configuration against tp=1 (tp_engine_check): every
+   sampled logits row up to the first parting within TOL_TP_LOGITS, the
+   greedy streams equal or parting only at near-ties under that bound,
+   tok/s and TTFT of a burst on each.
 Phase 10 also runs the ring at a ragged chunk (Llama-3-8B widths,
 T=16000 on sp=4: chunks of 4000 padded to 4096, the padded keys masked by
 K1's and K2's kv_len) and holds each padded chunk pair against the plain
@@ -101,16 +111,20 @@ versions; phase 2 also holds the kernels at a head dim of 80, which the
 wrapper pads to 128.
 Across cards, tests/test_torch_cuda.py::test_pp_across_cards runs
 `pp_cards`: GPT-2-125M on pp=2 over NCCL on two cards against one process,
-and Llama-3-8B at full width on pp=4 over four against one card's no-grad
-loss. Across two cards, tests/test_torch_cuda.py::test_sp_across_cards runs
+Llama-3-8B at full width on pp=4 over four against one card's no-grad
+loss, and TinyLlama-1.1B on pp=2 x sp=2 over four (the ring inside every
+stage) against one card's first step, its peak memory a rank beside the
+prediction; test_mesh_across_cards runs `hier_cards` (GPT-2-125M on the
+hierarchical mesh Topology(2, 1) x tp=2, four cards) and
+test_tp_engine_across_cards the tp engine over two cards. Across two cards, tests/test_torch_cuda.py::test_sp_across_cards runs
 `sp_pair`: GPT-2-125M on sp=2 with ring and Ulysses and tinyllama-1.1b with
 ring over NCCL against one process, and the sp=2 checkpoint on one card.
 Phase 2 also holds the kernels at the Llama paths' shapes (tinyllama's
 training, llama3-8b's forward, K/V expanded from the KV heads) and times
 that expansion. Phases 4-5 (GPT-2 inference), 5b (the OpenAI server), 6
 (GPT-2 training), 6b's (b) (data-parallel training), 6c's (a) and (c)
-(sharded training), 7, 8, 9, each case of 10, 11 and 12 are the main
-paths: every kernel's launch count is set to 0 before each and read right
+(sharded training), 7, 8, 9, each case of 10, 11, 12 and 13's (b) are
+the main paths: every kernel's launch count is set to 0 before each and read right
 after. The line before the last lists the kernels as JSON, with the GPT-2
 training path's counts under "launches", every path's under
 "launches_by_path", the ring's non-causal chunk pair under "ring_chunk",
@@ -155,7 +169,8 @@ from ray_tpu_torch.ops import ring_attention as ring
 from ray_tpu_torch.serve.compiled_chain import CHAIN_ERR
 from ray_tpu_torch.serve.llm import LLMEngine, LLMServer, OpenAIServer
 from ray_tpu_torch.parallel.mesh import (MeshConfig, build_hierarchical_mesh,
-                                         build_mesh, hier_groups)
+                                         build_mesh, full_hierarchical_mesh,
+                                         hier_groups)
 from ray_tpu_torch.train import checkpoint as ckpt_lib
 from ray_tpu_torch.train import spmd
 from ray_tpu_torch.util import collective as col
@@ -323,6 +338,21 @@ MESH_MOE_LAYERS = 1
 MESH_RUNS = (("tp=2", "gpt2", {"tp": 2}, 3),
              ("fsdp=2", "gpt2", {"fsdp": 2}, 3),
              ("ep=2", "moe", {"ep": 2}, 2))
+# hier_cards (tests/test_torch_cuda.py::test_mesh_across_cards, four cards
+# over NCCL): the hierarchical mesh Topology(2, 1) x tp=2, GPT-2-125M at
+# phase 6's configuration and MESH_B, against one process
+HIER_TOPOLOGY = (2, 1)
+HIER_RUNS = (("Topology(2, 1) x tp=2", "gpt2", {"dp": 2, "tp": 2}, 3),)
+# phase_compose (a): the tensor-parallel engine, both shards on the card,
+# at phase 5's configuration, against tp=1. The gate, stated before the
+# run: every logits row the two engines sample from, up to and including
+# the first position where their greedy streams part, within
+# TOL_TP_LOGITS (phase 5's bf16 bound: tp=2 adds the row-parallel
+# products' partial sums in another order); a stream may part only where
+# tp=1's top-2 margin is under the same bound (a near-tie, recorded)
+TOL_TP_LOGITS = 0.1
+TP_PROMPTS = ((11, 192), (12, 300), (13, 64), (14, 500))   # (seed, length)
+TP_NEW = 32
 # (b)'s ops: the collective of each redistribution DTensor makes, and the
 # redistribution that issues it
 GLOO_OPS = {"all_gather": "Shard -> Replicate",
@@ -375,8 +405,14 @@ PIPE_STEPS = 5
 # the pipeline (8.03 B params with f32 Adam are ~128 GB of state; a rank
 # of pp=4 holds 8 layers and the replicated embedding and head), against
 # one card's no-grad loss_fn at the same weights and batch
+# TinyLlama-1.1B on pp=2 x sp=2 over four cards (11 layers a stage, the
+# ring running K1-K3 on chunk pairs inside every stage), B=4 T=4096 (the
+# preset's max_seq_len, 2048 a sp rank) in 4 microbatches, against the
+# same model and batch trained on one card (first loss and grad norm)
 PP_RUNS = {"gpt2": ("gpt2-125m pp=2", "gpt2", {"pp": 2}, 3, 24, 1024, 8),
-           "llama": ("llama3-8b pp=4", "llama", {"pp": 4}, 2, 8, 2048, 8)}
+           "llama": ("llama3-8b pp=4", "llama", {"pp": 4}, 2, 8, 2048, 8),
+           "tinyllama-sp": ("tinyllama-1.1b pp=2 sp=2", "llama",
+                            {"pp": 2, "sp": 2}, 2, 4, 4096, 4)}
 PP_LLAMA = "llama3-8b"
 PP_SPAWN_S = 900
 
@@ -1835,7 +1871,10 @@ def _mesh_rank(rank: int, world: int, tmp: str, conf: dict) -> None:
     out = {}
     for label, fam, config, steps, *impl in conf["runs"]:
         model, cfg, tokens, init_dev = _mesh_case(fam, conf, device, *impl)
-        mesh = build_mesh(config, device_type=device.type)
+        mesh = (build_hierarchical_mesh(config, Topology(*conf["topology"]),
+                                        device_type=device.type)
+                if conf.get("topology") else
+                build_mesh(config, device_type=device.type))
         train = spmd.compile_model_train(model, cfg, mesh=mesh,
                                          optimizer=_dp_opt(), device=device)
         state = train.init_fn(torch.Generator(device=init_dev).manual_seed(0))
@@ -1882,15 +1921,30 @@ def mesh_pair(card: str, tmp: str, backend: str) -> dict:
     same global batch; raises if a gate fails. Returns rank 0's launches
     by path. tests/test_torch_cuda.py::test_mesh_across_cards runs it over
     NCCL on two cards."""
+    return _mesh_across(card, tmp, backend, MESH_RUNS, 2)
+
+
+def hier_cards(card: str, tmp: str, backend: str = "nccl") -> dict:
+    """HIER_RUNS on the hierarchical mesh HIER_TOPOLOGY x tp=2, one rank a
+    card over `backend` (four), against one process at the same global
+    batch, under mesh_pair's gates. tests/test_torch_cuda.py::
+    test_mesh_across_cards runs it on four cards."""
+    return _mesh_across(card, tmp, backend, HIER_RUNS, 4, HIER_TOPOLOGY)
+
+
+def _mesh_across(card: str, tmp: str, backend: str, runs, world: int,
+                 topology=None) -> dict:
+    """`runs` on `world` ranks of `backend` (build_mesh meshes, or with
+    `topology` build_hierarchical_mesh ones) against one process."""
     conf = dict(device=DEVICE, backend=backend, preset=PRESET, seq=SEQ,
                 b=MESH_B, moe_preset=MOE_PRESET, moe_layers=MESH_MOE_LAYERS,
-                moe_b=MOE_B, moe_t=MOE_T, runs=MESH_RUNS)
+                moe_b=MOE_B, moe_t=MOE_T, runs=runs, topology=topology)
     refs = _mesh_refs(conf, tmp)
-    _join(_spawn(_mesh_rank, 2, (2, tmp, conf), DP_SPAWN_S))
+    _join(_spawn(_mesh_rank, world, (world, tmp, conf), DP_SPAWN_S))
     outs = [torch.load(os.path.join(tmp, f"mesh-rank{r}.pt"))
-            for r in range(2)]
+            for r in range(world)]
     paths = {}
-    for label, fam, config, steps in MESH_RUNS:
+    for label, fam, config, steps in runs:
         model, cfg, _, _ = _mesh_case(fam, conf, DEVICE)
         ref, o = refs[label], outs[0][label]
         losses = [h[0] for h in o["hist"]]
@@ -1911,7 +1965,7 @@ def mesh_pair(card: str, tmp: str, backend: str) -> dict:
         pgap = ("not checked (MoE)" if o["gap"] is None
                 else f"{o['gap']:.3g} (tol {TOL_TRAIN_GRAD_NORM})")
         log(f"[mesh {label}] {name} B={B} T="
-            f"{SEQ if fam == 'gpt2' else MOE_T} on {backend}, two ranks, "
+            f"{SEQ if fam == 'gpt2' else MOE_T} on {backend}, {world} ranks, "
             f"{steps} steps: losses {' '.join(f'{v:.6f}' for v in losses)}; "
             f"one process {' '.join(f'{v:.6f}' for v, _ in ref)}; max "
             f"|dloss| {gap:.3g} (tol {TOL_TRAIN_LOSS}); grad norms "
@@ -2401,16 +2455,184 @@ def phase_pipeline(card: str) -> tuple:
     return launches
 
 
+def _sampled_rows(eng) -> list:
+    """Every logits row `eng` samples a token from, in order, appended to
+    the list returned (wraps the engine's _finish_token)."""
+    rows, finish = [], eng._finish_token
+
+    def record(i, req, row, rng):
+        rows.append(row.copy())
+        return finish(i, req, row, rng)
+    eng._finish_token = record
+    return rows
+
+
+def _burst(eng, prompts: list, max_tokens: int) -> tuple:
+    """The prompts at once, one thread each: (tokens, seconds, mean TTFT
+    s of the burst)."""
+    out = [None] * len(prompts)
+    ttft0 = (eng.ttft_sum, eng.ttft_count)
+
+    def call(j):
+        out[j] = eng.generate(prompt_ids=prompts[j], max_tokens=max_tokens)
+
+    threads = [threading.Thread(target=call, args=(j,))
+               for j in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    if any(o is None for o in out):
+        raise AssertionError("a request got no answer")
+    n = sum(len(o["token_ids"]) for o in out)
+    return n, wall, ((eng.ttft_sum - ttft0[0])
+                     / (eng.ttft_count - ttft0[1]))
+
+
+def tp_engine_check(card: str, devices: list) -> dict:
+    """The tensor-parallel engine over `devices` (two: both shards on one
+    card in phase_compose, two cards in tests/test_torch_cuda.py) against
+    tp=1 on the first, at phase 5's configuration: solo greedy requests
+    under the TOL_TP_LOGITS gate, then a concurrent burst on each for
+    tok/s and TTFT. Raises if the gate fails; returns the record."""
+    import numpy as np
+
+    kw = dict(preset=PRESET, max_batch=4, max_seq_len=SERVE_WINDOW, seed=0,
+              prefill_chunk_size=64, kv_block_size=16, kv_blocks=64)
+    log(f"[tp engine] stated before the run: every sampled logits row up "
+        f"to the first parting within max |d| {TOL_TP_LOGITS} of tp=1's; "
+        f"streams equal, or parting only where tp=1's top-2 margin is "
+        f"under {TOL_TP_LOGITS} (a near-tie)")
+    engines = {"tp=1": LLMEngine(device=devices[0], **kw)}
+    try:
+        engines["tp=2"] = LLMEngine(tensor_parallel_size=len(devices),
+                                    device=devices, **kw)
+        rows = {n: _sampled_rows(e) for n, e in engines.items()}
+        prompts = [_prompt(seed, n) for seed, n in TP_PROMPTS]
+        runs = {n: [] for n in engines}
+        for prompt in prompts:
+            for n, e in engines.items():
+                rows[n].clear()
+                toks = e.generate(prompt_ids=prompt,
+                                  max_tokens=TP_NEW)["token_ids"]
+                runs[n].append((toks, list(rows[n])))
+        worst, first, near_ties, parted = 0.0, [], [], []
+        for p, ((t1, r1), (t2, r2)) in enumerate(zip(runs["tp=1"],
+                                                     runs["tp=2"])):
+            j = next((i for i, (a, b) in enumerate(zip(t1, t2)) if a != b),
+                     min(len(t1), len(t2)))
+            # rows up to j had the same inputs on both engines
+            gaps = [float(np.abs(a - b).max())
+                    for a, b in zip(r1[:j + 1], r2[:j + 1])]
+            worst = max(worst, *gaps)
+            first += gaps[1:2]          # the first decode step's row
+            if j < max(len(t1), len(t2)):
+                top = np.sort(r1[j])[-2:]
+                margin = float(top[1] - top[0])
+                (near_ties if margin < TOL_TP_LOGITS else parted).append(
+                    (p, j, round(margin, 5)))
+        rates = {}
+        for n, e in engines.items():
+            burst = [_prompt(20 + i, 64 + 96 * i) for i in range(8)]
+            tok, wall, ttft = _burst(e, burst, 64)
+            rates[n] = (tok / wall, ttft * 1e3)
+        rec = dict(first_decode_max=max(first, default=None), worst=worst,
+                   near_ties=near_ties, parted=parted, rates=rates)
+        log(f"[tp engine] {PRESET} window={SERVE_WINDOW} max_batch=4 "
+            f"chunk=64, tp=2 on {[str(d) for d in devices]} against tp=1: "
+            f"{len(prompts)} solo greedy requests of {TP_NEW} tokens; first "
+            f"decode step's logits max |d| {rec['first_decode_max']}, every "
+            f"sampled "
+            f"row to the first parting {worst:.4g} (tol {TOL_TP_LOGITS}); "
+            f"streams equal {len(prompts) - len(near_ties) - len(parted)}/"
+            f"{len(prompts)}, near-ties (prompt, position, margin) "
+            f"{near_ties}, partings past the bound {parted}; a burst of 8 "
+            f"requests of 64 tokens: tp=1 {rates['tp=1'][0]:.1f} tok/s, "
+            f"mean TTFT {rates['tp=1'][1]:.1f} ms; tp=2 "
+            f"{rates['tp=2'][0]:.1f} tok/s, mean TTFT "
+            f"{rates['tp=2'][1]:.1f} ms on {card}")
+        if worst > TOL_TP_LOGITS or parted:
+            raise AssertionError("the tp=2 engine disagrees with tp=1")
+        return rec
+    finally:
+        for e in engines.values():
+            e.shutdown()
+
+
+def _compose_world1(card: str, tmp: str) -> tuple:
+    """(b) GPT-2-125M at phase 6's configuration through
+    compile_gpt2_train on the 7-D hierarchical mesh at world 1 over NCCL
+    (every degree 1, Topology(1, 1): the composed path, params and rows as
+    DTensors on the model sub-mesh, the sync on the local shards) against
+    one device: losses and params bit-equal, exact launches."""
+    dev_id = {"device_id": torch.device(DEVICE, torch.cuda.current_device())
+              } if DP_BACKEND == "nccl" else {}
+    dist.init_process_group(DP_BACKEND, store=dist.FileStore(
+        os.path.join(tmp, "compose-world1"), 1), rank=0, world_size=1,
+        **dev_id)
+    try:
+        mesh = full_hierarchical_mesh(topology=Topology(1, 1),
+                                      device_type=DEVICE)
+        cfg = _dp_cfg(PRESET)
+        batch = {"tokens": _dp_tokens(cfg, TRAIN_B, SEQ).to(DEVICE)}
+        runs, launches = _one_vs_mesh(cfg, mesh, batch, DP_STEPS)
+        (l1, s1, p1), (l2, s2, p2) = runs["one device"], runs["mesh"]
+        same = l1 == l2 and all(
+            torch.equal(a, b) for a, b in
+            zip(spmd._leaves(p1), spmd._leaves(spmd.unshard(p2))))
+        per_step = (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer)
+        log(f"[compose world 1] {PRESET} B={TRAIN_B} T={SEQ} remat=dots on "
+            f"{DP_BACKEND}, full_hierarchical_mesh: axes "
+            f"{mesh.mesh_dim_names} of size {mesh.size()}, {DP_STEPS} "
+            f"steps: losses {' '.join(f'{v:.6f}' for v in l2)}; one device "
+            f"{' '.join(f'{v:.6f}' for v in l1)}; losses and params "
+            f"{'bit-equal' if same else 'DIFFER'}; K1/K2/K3 launches "
+            f"{launches} (want {per_step} a step); step "
+            f"{1e3 * statistics.median(s2[2:]):.2f} ms against one device's "
+            f"{1e3 * statistics.median(s1[2:]):.2f} ms (medians of steps 3+)"
+            f" on {card}")
+        if not same:
+            raise AssertionError("the composed world-1 step differs from "
+                                 "one device")
+        if launches != tuple(DP_STEPS * k for k in per_step):
+            raise AssertionError(f"K1/K2/K3 launches {launches} != "
+                                 f"{DP_STEPS} x {per_step}")
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_compose(card: str) -> tuple:
+    """What one card holds of the compositions: (b) the composed
+    hierarchical step at world 1 (the path whose launches count, from 0),
+    then (a) the tensor-parallel engine with both shards on the card (its
+    cache attention is dense: no kernel). Returns (b)'s launches."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_compose_")
+    try:
+        launches = _compose_world1(card, tmp)
+        torch.cuda.empty_cache()
+        tp_engine_check(card, [DEVICE, DEVICE])
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _pp_case(fam: str, device) -> tuple:
     """(model module, config, tokens [B, T+1] on the CPU, the init
     generator's device) of a PP_RUNS run: GPT-2 at phase 6's
-    configuration, Llama-3-8B with remat and flash, its weights drawn on
-    the card."""
+    configuration, Llama-3-8B with remat and flash, TinyLlama-1.1B with
+    remat and auto attention (the ring on the sp mesh, flash on one
+    card), the Llamas' weights drawn on the card."""
     _, _, _, _, B, T, _ = PP_RUNS[fam]
     if fam == "gpt2":
         cfg = _dp_cfg(PRESET)
         return gpt2, cfg, _dp_tokens(cfg, B, T), "cpu"
-    cfg = llama.LlamaConfig.preset(PP_LLAMA, attn_impl="flash", remat=True)
+    cfg = (llama.LlamaConfig.preset(LLAMA_TRAIN, attn_impl="auto",
+                                    remat=True)
+           if fam == "tinyllama-sp" else
+           llama.LlamaConfig.preset(PP_LLAMA, attn_impl="flash", remat=True))
     tokens = torch.randint(0, cfg.vocab_size, (B, T + 1),
                            generator=torch.Generator().manual_seed(2))
     return llama, cfg, tokens, device
@@ -2458,20 +2680,52 @@ def _pp_rank(rank: int, world: int, tmp: str, fam: str,
     dist.destroy_process_group()
 
 
+def _pp_peak_gb(model, cfg, config: dict, B: int, T: int, M: int
+                ) -> float:
+    """A pipelined rank's peak memory (GB), predicted before the run: f32
+    params, gradients and Adam moments (16 bytes a param) of its stage's
+    layers and of the embedding and head every stage holds; the remat
+    block inputs GPipe keeps for every tick ((M + F - 1) ticks x L/F
+    blocks of [B/M, T/sp, d] bf16); the loss's logits over the rank's
+    sequence shard ([B, T/sp, V]: bf16, its f32 copy, the f32
+    log-softmax and the f32 gradient, 14 bytes a logit)."""
+    F, sp = config["pp"], config.get("sp", 1)
+    D, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layer
+    outer = V * D * (1 if getattr(cfg, "tie_embeddings", True) else 2) + D
+    local = outer + (model.num_params(cfg) - outer) // F
+    acts = (M + F - 1) * (L // F) * (B // M) * (T // sp) * D * 2
+    return (16 * local + acts + 14 * B * (T // sp) * V) / 1e9
+
+
 def pp_cards(card: str, tmp: str, fam: str, backend: str = "nccl"
              ) -> tuple:
     """PP_RUNS[fam] over NCCL, one rank a card: GPT-2-125M on pp=2 against
     one process on one card (every step's loss within TOL_TRAIN_LOSS and
     grad norm within TOL_TRAIN_GRAD_NORM), Llama-3-8B on pp=4 against one
     card's no-grad loss_fn at the same weights and batch (the first loss
-    within TOL_TRAIN_LOSS); exact launches a rank, the same losses on
-    every rank. Raises if a gate fails; returns the launches by rank.
-    tests/test_torch_cuda.py::test_pp_across_cards runs it."""
+    within TOL_TRAIN_LOSS), TinyLlama-1.1B on pp=2 x sp=2 against the
+    same training on one card (the first step's loss and grad norm);
+    exact launches a rank (an sp rank r runs r + 1 live chunk pairs a
+    block), the same losses on every rank, the peak memory a rank logged
+    beside its prediction. Raises if a gate fails; returns the launches
+    by rank. tests/test_torch_cuda.py::test_pp_across_cards runs it."""
     label, _, config, steps, B, T, M = PP_RUNS[fam]
-    F = config["pp"]
+    F, sp = config["pp"], config.get("sp", 1)
     model, cfg, tokens, init_dev = _pp_case(fam, DEVICE)
+    predicted = _pp_peak_gb(model, cfg, config, B, T, M)
+    want = [tuple(steps * k * (r % sp + 1)
+                  for k in _pipe_per_step(cfg, F, M)) for r in range(F * sp)]
+    log(f"[pp {label}] stated before the run: K1/K2/K3 launches by rank "
+        f"{want}; peak memory a rank {predicted:.2f} GB")
     batch = {"tokens": tokens.to(DEVICE)}
-    if fam == "gpt2":
+    if fam == "tinyllama-sp":
+        ref, ref_secs, _ = _train_run(cfg, _dp_opt(), batch, steps, -1,
+                                      model=model, init_device=init_dev)
+        ref = ref[:1]          # the gate: the first step's loss and norm
+        ref_text = (f"one card's first step {ref[0][0]:.6f} (grad norm "
+                    f"{ref[0][1]:.6f}), "
+                    f"{1e3 * statistics.median(ref_secs[1:]):.2f} ms a step")
+    elif fam == "gpt2":
         ref, ref_secs, _ = _train_run(cfg, _dp_opt(), batch, steps, -1)
         ref_text = (f"one process {' '.join(f'{v:.6f}' for v, _ in ref)}"
                     f" (grad norms "
@@ -2487,11 +2741,10 @@ def pp_cards(card: str, tmp: str, fam: str, backend: str = "nccl"
         ref_text = f"one card's no-grad loss_fn {ref[0][0]:.6f}"
     del batch
     torch.cuda.empty_cache()
-    _join(_spawn(_pp_rank, F, (F, tmp, fam, backend), PP_SPAWN_S))
+    _join(_spawn(_pp_rank, F * sp, (F * sp, tmp, fam, backend), PP_SPAWN_S))
     outs = [torch.load(os.path.join(tmp, f"pp-rank{r}.pt"))
-            for r in range(F)]
+            for r in range(F * sp)]
     o = outs[0]
-    want = tuple(steps * k for k in _pipe_per_step(cfg, F, M))
     got = [x["launches"] for x in outs]
     gap = max(abs(a[0] - b[0]) for a, b in zip(o["hist"], ref))
     gap_n = max((abs(a[1] - b[1]) / b[1] for a, b in zip(o["hist"], ref)
@@ -2499,22 +2752,24 @@ def pp_cards(card: str, tmp: str, fam: str, backend: str = "nccl"
     step_ms = 1e3 * statistics.median(o["secs"][1:])
     flops = (6 * model.num_params(cfg)
              + 12 * cfg.n_layer * cfg.d_model * T) * B * T
-    mfu = 100 * flops / (step_ms / 1e3) / (F * PEAK_FLOPS[torch.bfloat16])
+    mfu = 100 * flops / (step_ms / 1e3) / (F * sp
+                                            * PEAK_FLOPS[torch.bfloat16])
     log(f"[pp {label}] {model.num_params(cfg) / 1e9:.3f} B params, B={B} "
-        f"T={T} bf16 remat, {F} ranks over {backend} (one card each, "
-        f"{cfg.n_layer // F} layers a stage), {M} microbatches of {B // M}, "
+        f"T={T} bf16 remat, {F * sp} ranks over {backend} (one card each, "
+        f"{cfg.n_layer // F} layers a stage, sp={sp}), {M} microbatches of "
+        f"{B // M}, "
         f"{steps} steps: losses {' '.join(f'{v:.6f}' for v, _ in o['hist'])}"
         f" (grad norms {' '.join(f'{v:.6f}' for _, v in o['hist'])}); "
         f"{ref_text}; max |dloss| {gap:.3g} (tol {TOL_TRAIN_LOSS}), max "
         f"relative grad-norm gap {gap_n:.3g} (tol {TOL_TRAIN_GRAD_NORM}); "
-        f"K1/K2/K3 launches by rank {got} (want {want} each); init "
+        f"K1/K2/K3 launches by rank {got} (want {want}); init "
         f"{o['init_s']:.1f} s; step {step_ms:.2f} ms (median of steps 2+), "
-        f"{B * T / step_ms * 1e3:.0f} tokens/s, MFU {mfu:.2f}% of {F} x 989 "
+        f"{B * T / step_ms * 1e3:.0f} tokens/s, MFU {mfu:.2f}% of {F * sp} x 989 "
         f"TFLOP/s bf16; peak memory a rank "
-        f"{', '.join(f'{x['peak_gb']:.2f}' for x in outs)} GB on {F} x "
-        f"{card}")
+        f"{', '.join(f'{x['peak_gb']:.2f}' for x in outs)} GB (predicted "
+        f"{predicted:.2f}) on {F * sp} x {card}")
     ok = (all(x["hist"] == o["hist"] for x in outs)
-          and all(g == want for g in got)
+          and got == want
           and all(math.isfinite(v) for h in o["hist"] for v in h)
           and gap <= TOL_TRAIN_LOSS and gap_n <= TOL_TRAIN_GRAD_NORM)
     if not ok:
@@ -2840,6 +3095,13 @@ def main() -> int:
     paths[f"{PRESET} pipeline pp={PIPE_F} (virtual stages) train"] = \
         phase_pipeline(card)
     log(f"[pipeline] phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # the compositions on one card: the composed hierarchical step counts
+    # from 0 in the phase; the tp engine launches no kernel
+    t0 = time.perf_counter()
+    paths[f"{PRESET} hierarchical 7-D world 1 train"] = phase_compose(card)
+    log(f"[compose] phase {time.perf_counter() - t0:.1f} s")
     log(f"[paths] K1/K2/K3 launches by path: {paths}")
 
     # each kernel's records by case: the GPT-2 training path's fill the

@@ -473,38 +473,145 @@ def prefill_chunk(params: Params, cache, tokens: torch.Tensor,
     near the sequence end), this writes exactly the valid lanes of active
     slots at pos0 + lane, and drops lanes that would fall past the window:
     the same cache for every input the JAX function accepts."""
+    logits, (cache,) = tp_prefill_chunk([params], [cache], tokens, pos0,
+                                        length, active, cfg, None)
+    return logits, cache
+
+
+def _cache_attn_partial(h, p, ck, cv, writes, pos, cfg: GPT2Config):
+    """One layer's attention on the KV cache for the heads `p` holds (all of
+    them, or a tensor-parallel shard's): the chunk's K/V written into the
+    cache lanes `writes` = (slot, lane, position), then attn @ wo without
+    the output bias (a shard's partial sum)."""
+    B, C, _ = h.shape
+    Dh = cfg.head_dim
+    H = p["wqkv"].shape[-1] // (3 * Dh)
+    qkv = matmul(h, p["wqkv"].to(cfg.dtype)) + p["bqkv"].to(cfg.dtype)
+    q, k, v = (t.reshape(B, C, H, Dh).transpose(1, 2)
+               for t in qkv.split(H * Dh, dim=-1))          # [B, H, C, Dh]
+    wb, wc, wt = writes
+    # advanced indices around a slice: the indexed view is [n, H, Dh]
+    ck[wb, :, wt] = k[wb, :, wc]
+    cv[wb, :, wt] = v[wb, :, wc]
+    # chunk lanes attend to everything written up to their own position
+    # (causal within the chunk, full attention to the prefix)
+    attn = _cache_attention(q, ck, cv, pos, Dh, cfg.dtype)
+    attn = attn.transpose(1, 2).reshape(B, C, H * Dh)
+    return attn @ p["wo"].to(cfg.dtype)
+
+
+def _mlp_partial(h, p, cfg: GPT2Config):
+    """The MLP on the d_ff columns `p` holds, without the output bias."""
+    h = matmul(h, p["wi"].to(cfg.dtype)) + p["bi"].to(cfg.dtype)
+    h = F.gelu(h, approximate="tanh")
+    return matmul(h, p["wo"].to(cfg.dtype))
+
+
+def tp_prefill_chunk(shards: List[Params], caches: List[dict],
+                     tokens: torch.Tensor, pos0: torch.Tensor,
+                     length: torch.Tensor, active: torch.Tensor,
+                     cfg: GPT2Config, allreduce):
+    """`prefill_chunk` over tensor-parallel shards (`tp_shards`), one a
+    device, each with its heads' cache (`tp_init_caches`). Every device
+    keeps the whole activation [B, C, D]; each layer's attention and MLP
+    run on each shard's heads and d_ff columns, and `allreduce` (a list a
+    device in, the same sum on every device out) adds the partial sums of
+    the row-parallel wo products before the biases. One shard with
+    `allreduce` None is `prefill_chunk`. Returns (logits from the first
+    device, caches)."""
     B, C = tokens.shape
-    H, Dh = cfg.n_head, cfg.head_dim
-    T = cache["k"].shape[3]
-    dev = tokens.device
-    wte = params["wte"]
-    lane = torch.arange(C, device=dev)
-    pos = pos0[:, None] + lane[None, :]                          # [B, C]
-    write = (lane[None, :] < length[:, None]) & active[:, None] & (pos < T) \
-        & (pos >= 0)
-    wb, wc = write.nonzero(as_tuple=True)                        # lanes kept
-    wt = pos[wb, wc]
-    x = wte[tokens] + params["wpe"][pos.clamp(0, cfg.max_seq_len - 1)]
-    x = x.to(cfg.dtype)                                          # [B, C, D]
-    for i, bp in enumerate(_layers(params["blocks"])):
-        h = _layer_norm(x, bp["ln1"])
-        q, k, v = (t.reshape(B, C, H, Dh).transpose(1, 2)
-                   for t in _qkv(h, bp["attn"], cfg))           # [B, H, C, Dh]
-        ck, cv = cache["k"][i], cache["v"][i]                   # [B, H, T, Dh]
-        # advanced indices around a slice: the indexed view is [n, H, Dh]
-        ck[wb, :, wt] = k[wb, :, wc]
-        cv[wb, :, wt] = v[wb, :, wc]
-        # chunk lanes attend to everything written up to their own position
-        # (causal within the chunk, full attention to the prefix)
-        attn = _cache_attention(q, ck, cv, pos, Dh, cfg.dtype)
-        attn = attn.transpose(1, 2).reshape(B, C, H * Dh)
-        x = x + (attn @ bp["attn"]["wo"].to(cfg.dtype)
-                 + bp["attn"]["bo"].to(cfg.dtype))
-        x = x + _mlp(_layer_norm(x, bp["ln2"]), bp["mlp"], cfg)
-    last = (length - 1).clamp(0, C - 1)
-    x_last = _layer_norm(x[torch.arange(B, device=dev), last],
-                         params["ln_f"])
-    return (x_last @ wte.T.to(cfg.dtype)).float(), cache
+    T = caches[0]["k"].shape[3]
+    xs, views = [], []
+    for p, cache in zip(shards, caches):
+        dev = cache["k"].device
+        tok, p0, n, act = (t.to(dev) for t in (tokens, pos0, length, active))
+        lane = torch.arange(C, device=dev)
+        pos = p0[:, None] + lane[None, :]                        # [B, C]
+        write = (lane[None, :] < n[:, None]) & act[:, None] & (pos < T) \
+            & (pos >= 0)
+        wb, wc = write.nonzero(as_tuple=True)                    # lanes kept
+        writes = (wb, wc, pos[wb, wc])
+        x = p["wte"][tok] + p["wpe"][pos.clamp(0, cfg.max_seq_len - 1)]
+        xs.append(x.to(cfg.dtype))                               # [B, C, D]
+        views.append((_layers(p["blocks"]), writes, pos))
+    for i in range(cfg.n_layer):
+        parts = [_cache_attn_partial(
+            _layer_norm(x, layers[i]["ln1"]), layers[i]["attn"],
+            cache["k"][i], cache["v"][i], writes, pos, cfg)
+            for x, (layers, writes, pos), cache in zip(xs, views, caches)]
+        parts = allreduce(parts) if allreduce is not None else parts
+        xs = [x + (part + layers[i]["attn"]["bo"].to(cfg.dtype))
+              for x, part, (layers, _, _) in zip(xs, parts, views)]
+        parts = [_mlp_partial(_layer_norm(x, layers[i]["ln2"]),
+                              layers[i]["mlp"], cfg)
+                 for x, (layers, _, _) in zip(xs, views)]
+        parts = allreduce(parts) if allreduce is not None else parts
+        xs = [x + (part + layers[i]["mlp"]["bo"].to(cfg.dtype))
+              for x, part, (layers, _, _) in zip(xs, parts, views)]
+    x, p = xs[0], shards[0]
+    last = (length.to(x.device) - 1).clamp(0, C - 1)
+    x_last = _layer_norm(x[torch.arange(B, device=x.device), last],
+                         p["ln_f"])
+    return (x_last @ p["wte"].T.to(cfg.dtype)).float(), caches
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving: one process, a shard a device (the JAX package's
+# single-controller tp engine, where XLA places the shards and collectives)
+# ---------------------------------------------------------------------------
+
+def tp_shards(params: Params, cfg: GPT2Config, devices: List) -> List[Params]:
+    """The params cut for tensor parallelism over `devices` by the tp
+    entries of `param_logical_axes` under the default rules: "heads" and
+    "mlp" dims split evenly, shard r taking heads [r·H/tp, (r+1)·H/tp) and
+    the same d_ff slice. wqkv and bqkv are cut per head from q, k and v
+    apart (their fused 3·d_model dim holds q, k and v one after the other,
+    so a contiguous slice would not be a shard's heads). The "vocab" dim
+    of the tied embedding stays whole on every device: a lookup and each
+    logit's dot product over d_model are the same numbers whichever
+    device holds the row, so the logits come from the first device alone
+    with nothing to gather. Every other leaf (layer norms, wpe, the output
+    biases, added once after the all-reduce) is whole on every device."""
+    from ray_tpu_torch.parallel.mesh import DEFAULT_RULES
+
+    tp, H, Dh = len(devices), cfg.n_head, cfg.head_dim
+    if H % tp or cfg.d_ff % tp:
+        raise ValueError(f"tensor_parallel_size={tp} must divide n_head "
+                         f"({H}) and d_ff ({cfg.d_ff})")
+    axes = _flatten(param_logical_axes(cfg))
+    shards = []
+    for r, dev in enumerate(devices):
+        flat = {}
+        for key, a in _flatten(params).items():
+            dims = [i for i, n in enumerate(axes[key])
+                    if n != "vocab" and DEFAULT_RULES.get(n) == "tp"]
+            if dims and key.endswith(("attn/wqkv", "attn/bqkv")):
+                d = dims[0]
+                a = a.unflatten(d, (3, H, Dh)).narrow(d + 1, r * H // tp,
+                                                      H // tp).flatten(d, d + 2)
+            elif dims:
+                a = a.chunk(tp, dims[0])[r]
+            flat[key] = a.to(dev).contiguous()
+        shards.append(_nest(flat))
+    return shards
+
+
+def tp_init_caches(cfg: GPT2Config, batch: int, max_len: Optional[int],
+                   devices: List) -> List[dict]:
+    """`init_cache` a shard: [n_layer, B, H/tp, T, Dh] on each device."""
+    T = max_len or cfg.max_seq_len
+    shape = (cfg.n_layer, batch, cfg.n_head // len(devices), T, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=d),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=d)}
+            for d in devices]
+
+
+def tp_decode_step(shards: List[Params], caches: List[dict],
+                   tokens: torch.Tensor, pos: torch.Tensor,
+                   active: torch.Tensor, cfg: GPT2Config, allreduce):
+    """`decode_step` on tensor-parallel shards."""
+    return tp_prefill_chunk(shards, caches, tokens[:, None], pos,
+                            active.long(), active, cfg, allreduce)
 
 
 def num_params(cfg: GPT2Config) -> int:

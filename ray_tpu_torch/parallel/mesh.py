@@ -16,10 +16,12 @@ unsharded case, as in JAX.
   order (`MESH_AXES`);
 - the flax-style logical rules (`DEFAULT_RULES`, `logical_to_spec`,
   `use_mesh`, `constrain`) map a model's logical axis names to mesh axes;
-- `build_hierarchical_mesh`: the data-parallel mesh whose dp axis is split
-  into `(dp_inter, dp_intra)`, hosts x local devices, whose two dimensions'
-  groups carry the two-level gradient sync of `train.spmd`. Composing it
-  with fsdp, sp, ep, tp or pp (JAX's `HIER_MESH_AXES`) is not ported.
+- `build_hierarchical_mesh`: the mesh whose dp axis is split into
+  `(dp_inter, dp_intra)`, hosts x local devices, whose two dimensions'
+  groups carry the two-level gradient sync of `train.spmd`; composed with
+  fsdp, sp, ep and tp it is JAX's 7-D `HIER_MESH_AXES` mesh
+  (`full_hierarchical_mesh`), whose other axes `model_submesh` hands to
+  DTensor. pp on it is refused, as the JAX package's pipeline fails there.
 """
 
 from __future__ import annotations
@@ -198,41 +200,94 @@ def _host_topology(world: int) -> Topology:
 def build_hierarchical_mesh(config: Optional[Mapping[str, int]] = None,
                             topology: Optional[Topology] = None,
                             device_type: Optional[str] = None):
-    """A 2-D `DeviceMesh` named `(dp_inter, dp_intra)` over the default
-    process group's ranks, laid out row-major hosts x local (rank =
-    inter_pos * intra + intra_pos), as `Topology` numbers its members.
+    """A `DeviceMesh` over the default process group's ranks whose dp axis
+    is split into `(dp_inter, dp_intra)`, laid out row-major hosts x local
+    (dp rank = inter_pos * intra + intra_pos), as `Topology` numbers its
+    members and as the JAX package lays out its dp slot.
+
+    With dp alone (every other axis of `config` 1) it is the 2-D
+    `(dp_inter, dp_intra)` mesh. With fsdp, sp, ep or tp it is the 7-D
+    `HIER_MESH_AXES` mesh (`full_hierarchical_mesh`): `train.spmd` runs
+    the two-level sync over the dp pair and leaves the other axes to
+    DTensor on `model_submesh(mesh)`, as the JAX package's step is manual
+    over the dp pair only. pp > 1 raises: the JAX package's pipeline opens
+    a shard_map that fails nested inside its fused sync's (ROADMAP queue
+    3). A dp left out of `config` takes the ranks the other axes leave.
 
     Call `torch.distributed.init_process_group` first (one rank per
-    device). `config` may only name dp (its degree must be the world): the
-    JAX package's hierarchical mesh composed with fsdp, sp, ep, tp or pp
-    (`HIER_MESH_AXES`) is not ported. `topology` defaults to the hosts the
-    ranks run on; tests pass an explicit `Topology(2, 2)` to emulate 2
-    hosts x 2 devices. `device_type` defaults to CUDA, and raises without
-    it."""
+    device). `topology` defaults to the hosts the ranks run on; tests pass
+    an explicit `Topology(2, 2)` to emulate 2 hosts x 2 devices.
+    `device_type` defaults to CUDA, and raises without it."""
     from torch.distributed.device_mesh import DeviceMesh
 
+    degrees, topology = _hier_layout(config, topology)
+    if any(v != 1 for a, v in degrees.items() if a != "dp"):
+        return full_hierarchical_mesh(config, topology, device_type)
+    return DeviceMesh(default_device(device_type).type,
+                      torch.arange(topology.world).reshape(topology.inter,
+                                                           topology.intra),
+                      mesh_dim_names=DP_SUB_AXES)
+
+
+def full_hierarchical_mesh(config: Optional[Mapping[str, int]] = None,
+                           topology: Optional[Topology] = None,
+                           device_type: Optional[str] = None):
+    """`build_hierarchical_mesh`'s 7-D `HIER_MESH_AXES` mesh, ranks
+    row-major in that order, whatever the degrees: with every axis but dp
+    at 1 too it runs the composed path where `build_hierarchical_mesh`
+    gives the 2-D mesh."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    degrees, topology = _hier_layout(config, topology)
+    shape = [topology.inter if a == "dp_inter" else
+             topology.intra if a == "dp_intra" else degrees[a]
+             for a in HIER_MESH_AXES]
+    return DeviceMesh(default_device(device_type).type,
+                      torch.arange(math.prod(shape)).reshape(shape),
+                      mesh_dim_names=HIER_MESH_AXES)
+
+
+def _hier_layout(config, topology) -> tuple:
+    """(the degrees of `config` over the world, the Topology of its dp)."""
     world = _world("build_hierarchical_mesh")
     cfg = dict(config or {})
-    others = {k: v for k, v in cfg.items() if k != "dp" and v != 1}
-    if others:
+    if cfg.get("pp", 1) != 1:
         raise NotImplementedError(
-            f"mesh axes {sorted(others)} on a hierarchical mesh (the JAX "
-            f"package's {HIER_MESH_AXES}) are not ported (ROADMAP item 5's "
-            f"remainder); build_mesh composes dp with fsdp, tp and ep")
-    dp = cfg.get("dp", world)
-    if dp != world:
-        raise ValueError(f"dp={dp} must cover the world of {world} ranks")
+            "pp on a hierarchical mesh: the JAX package's pipeline fails "
+            "there (its shard_map nested in the fused sync's, manual over "
+            "the dp pair, raises \"ValueError: The context mesh ... should "
+            "match the mesh passed to shard_map\"), so the port refuses "
+            "it (ROADMAP queue 3); compile_pipeline_train composes pp with "
+            "dp on build_mesh")
+    cfg.setdefault("dp", -1)
+    degrees = MeshConfig(**cfg).resolved(world).degrees()
+    dp = degrees["dp"]
+    others = world // dp
     if topology is None:
         topology = _host_topology(world)
-    if topology.world != world:
+        if others > 1:   # the dp positions each host holds
+            local = topology.intra // others if \
+                topology.intra % others == 0 else 0
+            topology = (Topology(dp // local, local)
+                        if local > 1 and dp % local == 0
+                        else Topology(dp, 1))
+    if topology.world != dp:
         raise ValueError(
-            f"dp={world} devices cannot form a {topology.inter}x"
+            f"dp={dp} devices cannot form a {topology.inter}x"
             f"{topology.intra} (inter x intra) topology")
-    device_type = default_device(device_type).type
-    return DeviceMesh(device_type,
-                      torch.arange(world).reshape(topology.inter,
-                                                  topology.intra),
-                      mesh_dim_names=DP_SUB_AXES)
+    return degrees, topology
+
+
+def model_submesh(mesh):
+    """A hierarchical mesh's dimensions other than the dp pair, the axes
+    DTensor shards the model and batch over, without those of degree 1
+    (see `build_mesh` on why); the last (`tp`, size 1) where every one is
+    1. None for the 2-D `(dp_inter, dp_intra)` mesh."""
+    names = [a for a in mesh_axes(mesh) if a not in DP_SUB_AXES]
+    if not names:
+        return None
+    keep = tuple(a for a in names if mesh.size(mesh_axes(mesh).index(a)) > 1)
+    return mesh[keep or (names[-1],)]
 
 
 def mesh_axes(mesh: Any) -> tuple:
@@ -559,6 +614,7 @@ def topology_from_devices() -> Topology:
 
 __all__ = ["MESH_AXES", "DP_SUB_AXES", "HIER_MESH_AXES", "MeshConfig",
            "adaptive_mesh_config", "build_mesh", "build_hierarchical_mesh",
+           "full_hierarchical_mesh", "model_submesh",
            "mesh_axes", "dp_axis_names", "is_hierarchical_mesh",
            "hier_topology", "hier_groups", "rules_for_mesh", "LogicalRules",
            "DEFAULT_RULES", "PartitionSpec", "P", "Sharding", "use_mesh",

@@ -34,10 +34,18 @@ The gradient is that of ONE loss, as in JAX, where the replicated loss's
 the last stage's own cotangent and sends nothing (every pp rank holds the
 same one), and the input's cotangent, which arises on stage 0 only, is
 summed over pp so that every rank's embedding sees it. Inside a stage, dp,
-fsdp and tp stay DTensor's: the stage's params and activations are
+fsdp, sp, ep and tp stay DTensor's: the stage's params and activations are
 DTensors on the sub-mesh without pp, made with `DTensor.from_local` from
 this rank's pp shard; each param's gradient is summed over the ticks and
-reduced to its placement once.
+reduced to its placement once. With sp the activation keeps its sequence
+split, each tick's attention runs ring (or Ulysses) attention over the
+sub-mesh's sp group, and every sp rank of a stage runs the same ticks in
+the same order, so the ring's hops pair up inside each tick's forward and
+backward.
+
+The accounted "pipeline.ppermute" bytes are the JAX package's count, of
+the whole activation: with dp or sp each pp group's hops carry its shard,
+and the groups' shards make the whole up.
 """
 
 from __future__ import annotations

@@ -5,7 +5,10 @@ KV state is pooled in fixed-size token blocks addressed by a rolling content
 hash of the prompt prefix, so requests sharing a prefix skip prefill for the
 cached span and shared prefixes are stored once. The pool is a device tensor
 ``[n_layer, n_blocks, n_head, block_size, head_dim]``; reuse copies whole
-blocks between it and the engine's dense per-slot cache, in place.
+blocks between it and the engine's dense per-slot cache, in place. A
+tensor-parallel engine's pool is one such tensor a device, holding that
+device's heads, and every copy runs on each; its blobs hold every head, as
+a one-device engine's do, so the two exchange them.
 """
 
 from __future__ import annotations
@@ -50,15 +53,21 @@ class PagedKVCache:
 
     def __init__(self, n_layer: int, n_head: int, head_dim: int,
                  num_blocks: int = 64, block_size: int = 16,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, devices=None):
+        """`devices`: a tensor-parallel engine's, the heads split evenly
+        over them in order (`device` for one)."""
         from ray_tpu_torch.utils.platform import default_device
 
         self.block_size = block_size
         self.num_blocks = num_blocks
-        shape = (n_layer, num_blocks, n_head, block_size, head_dim)
-        device = default_device(device)
-        self.pool_k = torch.zeros(shape, dtype=dtype, device=device)
-        self.pool_v = torch.zeros(shape, dtype=dtype, device=device)
+        devices = [default_device(d) for d in (devices or [device])]
+        shape = (n_layer, num_blocks, n_head // len(devices), block_size,
+                 head_dim)
+        # (pool_k, pool_v) a device; pool_k, pool_v are the first's
+        self.pools = [(torch.zeros(shape, dtype=dtype, device=d),
+                       torch.zeros(shape, dtype=dtype, device=d))
+                      for d in devices]
+        self.pool_k, self.pool_v = self.pools[0]
         self._free: List[int] = list(range(num_blocks))
         # chain hash -> block id, LRU order (least recent first)
         self._table: "OrderedDict[bytes, int]" = OrderedDict()
@@ -119,10 +128,17 @@ class PagedKVCache:
         return blk
 
     # -------------------------------------------------------------- store
+    def _shards(self, cache) -> list:
+        """((pool_k, pool_v), cache) a device: `cache` is the engine's
+        {"k","v"}, or a tensor-parallel engine's list of them."""
+        return list(zip(self.pools, cache if isinstance(cache, list)
+                        else [cache]))
+
     def store_prefix(self, ids: List[int], cache, slot: int) -> int:
         """Copy every full block of `ids` from `cache`'s dense slot lane into
         the pool (skipping chains already present). Returns the number of new
-        blocks stored. `cache` is the engine's {"k","v"}."""
+        blocks stored. `cache` is the engine's {"k","v"} (a list of them a
+        device under tensor parallelism)."""
         stored = 0
         t0 = 0
         for h, _blk in self._chains(ids):
@@ -130,9 +146,10 @@ class PagedKVCache:
                 blk = self._alloc()
                 if blk is None:
                     break
-                span = self._span(cache["k"], t0)
-                self.pool_k[:, blk] = cache["k"][:, slot, :, span]
-                self.pool_v[:, blk] = cache["v"][:, slot, :, span]
+                for (pool_k, pool_v), c in self._shards(cache):
+                    span = self._span(c["k"], t0)
+                    pool_k[:, blk] = c["k"][:, slot, :, span]
+                    pool_v[:, blk] = c["v"][:, slot, :, span]
                 self._table[h] = blk
                 stored += 1
             else:
@@ -146,9 +163,10 @@ class PagedKVCache:
         0, in place; returns the cache dict."""
         t0 = 0
         for blk in blocks:
-            span = self._span(cache["k"], t0)
-            cache["k"][:, slot, :, span] = self.pool_k[:, blk]
-            cache["v"][:, slot, :, span] = self.pool_v[:, blk]
+            for (pool_k, pool_v), c in self._shards(cache):
+                span = self._span(c["k"], t0)
+                c["k"][:, slot, :, span] = pool_k[:, blk]
+                c["v"][:, slot, :, span] = pool_v[:, blk]
             t0 += self.block_size
         return cache
 
@@ -186,9 +204,11 @@ def export_prefix(kv: PagedKVCache, ids) -> Optional[dict]:
     n, blocks = kv.match_prefix(list(ids))
     if not blocks:
         return None
-    idx = torch.tensor(blocks, device=kv.pool_k.device)
-    k = _to_numpy(kv.pool_k[:, idx].transpose(0, 1))
-    v = _to_numpy(kv.pool_v[:, idx].transpose(0, 1))
+    def whole(pools):     # every device's heads, in order
+        return torch.cat([p[:, torch.tensor(blocks, device=p.device)].cpu()
+                          for p in pools], dim=2)
+    k = _to_numpy(whole([k for k, _ in kv.pools]).transpose(0, 1))
+    v = _to_numpy(whole([v for _, v in kv.pools]).transpose(0, 1))
     return {"ids": list(ids[:n]), "k": k, "v": v,
             "block_size": kv.block_size}
 
@@ -209,8 +229,12 @@ def import_prefix(kv: PagedKVCache, blob: dict) -> int:
         blk = kv._alloc()
         if blk is None:
             break
-        kv.pool_k[:, blk] = _from_numpy(blob["k"][i]).to(kv.pool_k)
-        kv.pool_v[:, blk] = _from_numpy(blob["v"][i]).to(kv.pool_v)
+        n = len(kv.pools)
+        for (pool_k, pool_v), k, v in zip(
+                kv.pools, _from_numpy(blob["k"][i]).chunk(n, dim=1),
+                _from_numpy(blob["v"][i]).chunk(n, dim=1)):
+            pool_k[:, blk] = k.to(pool_k)
+            pool_v[:, blk] = v.to(pool_v)
         kv._table[h] = blk
         installed += 1
     return installed

@@ -125,6 +125,27 @@ def plan_chunk_budget(pending_lens: List[int], decoding: List[bool],
     return takes
 
 
+def _tp_devices(device, tp: int) -> list:
+    """The devices of a `tp`-way engine: `device` for every shard (one
+    device given), the list given (of tp), or the first tp CUDA devices."""
+    from ray_tpu_torch.utils.platform import default_device
+
+    if tp < 1:
+        raise ValueError(f"tensor_parallel_size={tp} must be >= 1")
+    if isinstance(device, (list, tuple)):
+        if len(device) != tp:
+            raise ValueError(f"tensor_parallel_size={tp} needs {tp} "
+                             f"devices, got {len(device)}")
+        return [default_device(d) for d in device]
+    if device is not None or tp == 1:
+        return [default_device(device)] * tp
+    default_device(None)             # raises without CUDA
+    if torch.cuda.device_count() < tp:
+        raise ValueError(f"tensor_parallel_size={tp} needs {tp} CUDA "
+                         f"devices, {torch.cuda.device_count()} exist")
+    return [torch.device("cuda", i) for i in range(tp)]
+
+
 class LLMEngine:
     """Continuous-batching decode engine over a fixed slot batch.
 
@@ -140,6 +161,19 @@ class LLMEngine:
     package's), from `params_override` (+ `cfg_override`), or from `seed`.
     `weights_id` names them for prefix-store keys (`prefix_model_key`).
     `device` defaults to CUDA and raises when there is none.
+
+    `tensor_parallel_size=N > 1` is the JAX package's single-controller tp
+    engine: this process drives N devices (`device`: one device for every
+    shard, or a list of N; by default the first N CUDA devices, raising
+    when fewer exist). The params are cut into a shard a device
+    (`gpt2.tp_shards`: heads and d_ff columns; the tied embedding whole)
+    and each device's KV cache and prefix pool hold its heads; the
+    row-parallel products' partial sums meet in a
+    `LocalCollectiveGroup.allreduce`, which folds in device order so every
+    device holds the same bits. The scheduler, sampling, streams and
+    statistics run once, on the host; `self.params` stays the whole tree
+    on the first device (LoRA merges read it). tp must divide n_head and
+    d_ff.
     """
 
     def __init__(self, preset: str = "gpt2-tiny", max_batch: int = 4,
@@ -156,15 +190,13 @@ class LLMEngine:
                  params_override=None, cfg_override=None,
                  weights_id: Optional[str] = None, device=None):
         from ray_tpu_torch.models import gpt2
-        from ray_tpu_torch.utils.platform import default_device
 
-        if tensor_parallel_size != 1:
-            raise NotImplementedError(
-                "tensor_parallel_size > 1 needs the collective slice")
         if scheduler not in ("continuous", "fixed"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         self.gpt2 = gpt2
-        self.device = default_device(device)
+        self.tp = tensor_parallel_size
+        self.devices = _tp_devices(device, self.tp)
+        self.device = self.devices[0]
         overrides = dict(model_overrides or {})
         overrides.setdefault("max_seq_len", max_seq_len)
         if params_override is not None:
@@ -195,8 +227,17 @@ class LLMEngine:
         # architecture allows a longer context
         self.max_seq_len = min(max_seq_len, self.cfg.max_seq_len)
         cfg = self.cfg
-        self.cache = gpt2.init_cache(cfg, max_batch, self.max_seq_len,
-                                     device=self.device)
+        if self.tp == 1:
+            self.cache = gpt2.init_cache(cfg, max_batch, self.max_seq_len,
+                                         device=self.device)
+        else:
+            from ray_tpu_torch.util.collective.local_group import \
+                LocalCollectiveGroup
+
+            self.shards = gpt2.tp_shards(self.params, cfg, self.devices)
+            self.group = LocalCollectiveGroup(self.devices)
+            self.cache = gpt2.tp_init_caches(cfg, max_batch,
+                                             self.max_seq_len, self.devices)
         self.kv = None
         if enable_prefix_caching:
             from ray_tpu_torch.serve.kv_cache import PagedKVCache
@@ -204,7 +245,7 @@ class LLMEngine:
             self.kv = PagedKVCache(cfg.n_layer, cfg.n_head, cfg.head_dim,
                                    num_blocks=kv_blocks,
                                    block_size=kv_block_size,
-                                   dtype=cfg.dtype, device=self.device)
+                                   dtype=cfg.dtype, devices=self.devices)
         self.scheduler = scheduler
         # chunk must fit the serving window (prefill_chunk requires C <= T)
         self.prefill_chunk_size = max(1, min(prefill_chunk_size,
@@ -593,9 +634,14 @@ class LLMEngine:
                 tokens[i] = (self._slots[i].generated[-1]
                              if self._slots[i].generated
                              else self._slots[i].prompt_ids[-1])
-        logits, self.cache = self.gpt2.decode_step(
-            self.params, self.cache, self._tensor(tokens), self._tensor(pos),
-            self._tensor(active), self.cfg)
+        args = (self._tensor(tokens), self._tensor(pos),
+                self._tensor(active), self.cfg)
+        if self.tp == 1:
+            logits, self.cache = self.gpt2.decode_step(
+                self.params, self.cache, *args)
+        else:
+            logits, self.cache = self.gpt2.tp_decode_step(
+                self.shards, self.cache, *args, self.group.allreduce)
         logits = logits.cpu().numpy()
         self.engine_steps += 1
         for i in live:
@@ -640,10 +686,15 @@ class LLMEngine:
         if not active.any():
             time.sleep(0.001)
             return
-        logits, self.cache = self.gpt2.prefill_chunk(
-            self.params, self.cache, self._tensor(tokens),
-            self._tensor(np.asarray(self._slot_pos, np.int64)),
-            self._tensor(lengths), self._tensor(active), self.cfg)
+        args = (self._tensor(tokens),
+                self._tensor(np.asarray(self._slot_pos, np.int64)),
+                self._tensor(lengths), self._tensor(active), self.cfg)
+        if self.tp == 1:
+            logits, self.cache = self.gpt2.prefill_chunk(
+                self.params, self.cache, *args)
+        else:
+            logits, self.cache = self.gpt2.tp_prefill_chunk(
+                self.shards, self.cache, *args, self.group.allreduce)
         logits = logits.cpu().numpy()
         self.engine_steps += 1
         self.chunk_steps += 1

@@ -20,11 +20,16 @@ Several devices run one process a device, in one of two ways:
   and DTensor's sharding propagation inserts the collectives GSPMD inserts
   there, the gradient reduction included;
 - on a hierarchical `DeviceMesh` (`parallel.mesh.build_hierarchical_mesh`),
-  data parallel with the fused sync: each rank takes its rows of the global
-  batch, and the step sums the gradients with the two-level schedule of
-  `util.collective.hierarchy` (reduce-scatter inside a host, allreduce of
-  the shard across hosts, optionally int8/fp8 with error feedback,
-  all-gather back) before the optimizer runs.
+  data parallel with the fused sync: each rank takes its dp rows of the
+  global batch, and the step sums the gradients with the two-level
+  schedule of `util.collective.hierarchy` (reduce-scatter inside a host,
+  allreduce of the shard across hosts, optionally int8/fp8 with error
+  feedback, all-gather back) before the optimizer runs. Composed with
+  fsdp, sp, ep or tp (the JAX package's step manual over the dp pair only,
+  the rest left to its partitioner), the params, the rows and the loss
+  are DTensors on the mesh's other axes (`mesh.model_submesh`), as on a
+  `build_mesh` mesh, and the sync runs on each rank's local gradient
+  shards.
 A mesh with sp shards the activations' sequence axis (the models'
 `constrain(..., "seq", ...)` points; attention runs as ring or Ulysses
 attention, `ops.ring_attention`). A mesh with pp trains through
@@ -271,10 +276,28 @@ def _one_device(mesh, device) -> torch.device:
                 "training on several devices in one process is not ported: "
                 "the port runs one process a device, on a "
                 "parallel.mesh.build_mesh mesh (dp, fsdp, sp, tp, ep) or "
-                "build_hierarchical_mesh; pp meshes are ROADMAP item 11: "
-                "they train through compile_pipeline_train")
+                "build_hierarchical_mesh; pp meshes train through "
+                "compile_pipeline_train")
         device = device if device is not None else devs[0]
     return default_device(device)
+
+
+def _model_mesh(mesh):
+    """The mesh DTensor places the params and the batch on: a `build_mesh`
+    mesh itself, a composed hierarchical mesh's `model_submesh`; None for
+    a dp-only hierarchical mesh and off a mesh."""
+    if not isinstance(mesh, DeviceMesh):
+        return None
+    if mesh_lib.is_hierarchical_mesh(mesh):
+        return mesh_lib.model_submesh(mesh)
+    return mesh
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _mesh_device(mesh, device) -> torch.device:
@@ -289,17 +312,10 @@ class _Sharded:
     placements (the reduction GSPMD inserts)."""
 
     def __init__(self, mesh, rules=None, pipeline: bool = False):
-        axes = mesh_lib.mesh_axes(mesh)
-        if "pp" in axes and not pipeline:
+        if "pp" in mesh_lib.mesh_axes(mesh) and not pipeline:
             raise NotImplementedError(
-                "a mesh with pp > 1 is ROADMAP item 11: it trains through "
-                "compile_pipeline_train; build_mesh meshes of dp, fsdp, sp, "
-                "tp and ep train here")
-        if pipeline and {"sp", "ep"} & set(axes):
-            raise NotImplementedError(
-                f"pp together with {sorted({'sp', 'ep'} & set(axes))} is "
-                f"ROADMAP item 5's remainder; compile_pipeline_train "
-                f"composes pp with dp, fsdp and tp")
+                "a mesh with pp > 1 trains through compile_pipeline_train; "
+                "build_mesh meshes of dp, fsdp, sp, tp and ep train here")
         self.mesh, self.rules = mesh, rules
         self.batch_sharding = mesh_lib.Sharding(
             mesh, mesh_lib.spec_to_placements(mesh, mesh_lib.P(("dp",
@@ -398,16 +414,18 @@ class _DataParallel:
             if tree is None:
                 raise RuntimeError("the residual is sized from the params: "
                                    "call init_fn first")
-            self.n_grads = sum(p.numel() for p in _leaves(tree))
+            self.n_grads = sum(_local(p).numel() for p in _leaves(tree))
         per_shard = -(-self.n_grads // self.topo.intra)
         if self.quantize is not None:
             per_shard = self.quantize.padded_size(per_shard)
         return self.n_grads, per_shard, per_shard * self.topo.intra
 
     def bucket(self, grads) -> torch.Tensor:
-        """grads in `_leaves` order as one f32 vector [n_pad]."""
+        """grads (this rank's shards of DTensors) in `_leaves` order as one
+        f32 vector [n_pad]."""
         n, _, n_pad = self.layout(grads)
-        parts = [g.reshape(-1).to(torch.float32) for g in _leaves(grads)]
+        parts = [_local(g).reshape(-1).to(torch.float32)
+                 for g in _leaves(grads)]
         if n_pad > n:
             parts.append(torch.zeros(n_pad - n, dtype=torch.float32,
                                      device=parts[0].device))
@@ -415,11 +433,20 @@ class _DataParallel:
 
     @staticmethod
     def unbucket(vec: torch.Tensor, like) -> Tree:
-        """vec's leading entries cast back to each leaf's dtype and shape."""
-        sizes = [g.numel() for g in _leaves(like)]
+        """vec's leading entries cast back to each leaf's dtype and (local)
+        shape, a DTensor leaf's as a DTensor with its placements."""
+        from torch.distributed.tensor import DTensor
+
+        sizes = [_local(g).numel() for g in _leaves(like)]
         pieces = iter(vec[:sum(sizes)].split(sizes))
-        return _tree_map(lambda g: next(pieces).view(g.shape).to(g.dtype),
-                         like)
+
+        def leaf(g):
+            t = next(pieces).view(_local(g).shape).to(g.dtype)
+            if not isinstance(g, DTensor):
+                return t
+            return DTensor.from_local(t, g.device_mesh, g.placements,
+                                      shape=g.shape, stride=g.stride())
+        return _tree_map(leaf, like)
 
     def mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
         """The mean of every rank's loss: two chained allreduces, intra
@@ -476,7 +503,11 @@ def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
     with the two-level sync, optionally quantizing the inter hop
     (`grad_quantize=QuantizedAllreduce(...)`); with error feedback the
     residual is step state (`init_ef_fn`). `phase_timing=True` adds
-    `timed_step_fn`, the same schedule with each phase timed.
+    `timed_step_fn`, the same schedule with each phase timed. A
+    hierarchical mesh composed with fsdp, sp, ep or tp needs `params_spec`
+    too: the params and the rows are placed on `mesh.model_submesh(mesh)`
+    (the batch split over fsdp there), and the sync runs on each rank's
+    local gradient shards.
     """
     optimizer = optimizer or default_optimizer()
     hier = mesh_lib.is_hierarchical_mesh(mesh)
@@ -495,20 +526,23 @@ def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
             "phase_timing does not support error-feedback quantization "
             "(the residual is fused-step state)")
     sharded = None
+    model_mesh = _model_mesh(mesh)
     if isinstance(mesh, DeviceMesh):
         device = _mesh_device(mesh, device)
-        if not hier:
+        if model_mesh is not None:
             if params_spec is None:
-                raise ValueError("a build_mesh mesh needs params_spec (the "
-                                 "model's param_specs)")
-            sharded = _Sharded(mesh, rules, pipeline)
+                raise ValueError("a build_mesh mesh, or a hierarchical one "
+                                 "composed with other axes, needs "
+                                 "params_spec (the model's param_specs)")
+            sharded = _Sharded(model_mesh, mesh_lib.rules_for_mesh(
+                mesh, rules) if hier else rules, pipeline)
     else:
         device = _one_device(mesh, device)
 
     def init_fn(generator: torch.Generator) -> TrainState:
         params = init_params_fn(generator, device=device)
         if sharded is not None:
-            params = shard_params(params, mesh, params_spec)
+            params = shard_params(params, model_mesh, params_spec)
         if dp is not None:
             dp.layout(params)
         return TrainState(0, params, optimizer.init(params))
@@ -540,6 +574,13 @@ def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
     def apply_fn(state: TrainState, grads) -> TrainState:
         return _apply(state, grads)[0]
 
+    extra = {}
+    if sharded is not None:
+        meta = _tree_map(lambda _: torch.empty(0, device="meta"),
+                         params_spec)
+        extra = dict(mesh=mesh, state_sharding=state_shardings(
+            TrainState(0, meta, optimizer.init(meta)), params_spec,
+            model_mesh))
     if not hier:
         dp = None
 
@@ -549,14 +590,8 @@ def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
             return state, {"loss": loss, "grad_norm": g_norm,
                            "step": state.step}
 
-        extra = {}
         if sharded is not None:
-            meta = _tree_map(lambda _: torch.empty(0, device="meta"),
-                             params_spec)
-            extra = dict(mesh=mesh, batch_sharding=sharded.batch_sharding,
-                         state_sharding=state_shardings(
-                             TrainState(0, meta, optimizer.init(meta)),
-                             params_spec, mesh))
+            extra["batch_sharding"] = sharded.batch_sharding
         return CompiledTrain(device=device, init_fn=init_fn, step_fn=step_fn,
                              grad_fn=local_grads, apply_fn=apply_fn,
                              abstract_state=abstract_state, **extra)
@@ -605,13 +640,14 @@ def compile_train(loss_fn: Callable[[Tree, Any], torch.Tensor],
         return state, {"loss": float(dp.mean_loss(loss)), "grad_norm": g_norm,
                        "step": state.step, "phases": clock.seconds()}
 
+    extra["mesh"] = mesh
     return CompiledTrain(
         device=device, init_fn=init_fn, step_fn=step_fn, grad_fn=grad_fn,
-        apply_fn=apply_fn, mesh=mesh, topology=dp.topo,
+        apply_fn=apply_fn, topology=dp.topo,
         grad_quantize=grad_quantize, sync_fn=sync_fn,
         init_ef_fn=init_ef_fn if dp.ef else None,
         timed_step_fn=timed_step_fn if phase_timing else None,
-        abstract_state=abstract_state)
+        abstract_state=abstract_state, **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -758,10 +794,8 @@ def compile_model_train(model_mod, cfg, mesh=None, optimizer=None,
                         phase_timing: bool = False) -> CompiledTrain:
     """compile_train for a model module exposing loss_fn / init_params /
     param_specs (ray_tpu_torch.models.{gpt2,llama,moe})."""
-    spec = None
-    if isinstance(mesh, DeviceMesh) and not mesh_lib.is_hierarchical_mesh(
-            mesh):
-        spec = model_mod.param_specs(cfg)
+    spec = model_mod.param_specs(cfg) if _model_mesh(mesh) is not None \
+        else None
     return compile_train(
         loss_fn=functools.partial(model_mod.loss_fn, cfg=cfg),
         init_params_fn=functools.partial(model_mod.init_params, cfg=cfg),
@@ -790,7 +824,10 @@ def compile_pipeline_train(model_mod, cfg, mesh, n_microbatches: int,
     `_block(x, bp, cfg)` body (gpt2, llama).
 
     `mesh` is either
-    - a `build_mesh` mesh with pp (composed with dp, fsdp and tp): the
+    - a `build_mesh` mesh with pp (composed with dp, fsdp, sp, ep and tp;
+      with sp the activation stays split over its sequence inside each
+      stage, whose attention runs ring or Ulysses on the stage's sub-mesh,
+      K1-K3 on the ring's chunk pairs): the
       stacked layer dim is split over pp (the rule "layers": "pp"), so each
       rank holds only its stage's layers, and this rank runs its stage; or
     - a `MeshConfig` (or mapping) of pp alone: its F stages run in this
@@ -800,6 +837,21 @@ def compile_pipeline_train(model_mod, cfg, mesh, n_microbatches: int,
     from ray_tpu_torch.parallel.pipeline import (make_stage_fn,
                                                  pipeline_apply, stack_stages)
 
+    if not all(hasattr(model_mod, f) for f in ("embed", "_block",
+                                                 "unembed")):
+        raise NotImplementedError(
+            f"compile_pipeline_train pipelines gpt2 and llama, whose blocks "
+            f"map x to x between embed and unembed, as the JAX package's "
+            f"does; {model_mod.__name__}'s blocks carry the router's aux "
+            f"loss and it has no embed/unembed: train it with "
+            f"compile_model_train")
+    if mesh_lib.is_hierarchical_mesh(mesh):
+        raise NotImplementedError(
+            "compile_pipeline_train on a hierarchical mesh: the JAX "
+            "package's pipeline fails there (its shard_map nested in the "
+            "fused sync's raises \"The context mesh ... should match the "
+            "mesh passed to shard_map\"), so the port refuses it (ROADMAP "
+            "queue 3); pipeline over a build_mesh mesh with pp and dp")
     virtual = not isinstance(mesh, DeviceMesh)
     if virtual:
         config = mesh if isinstance(mesh, mesh_lib.MeshConfig) \

@@ -449,6 +449,96 @@ def dp_four_ranks(rank, world, tmp):
     return out
 
 
+# ------------------------------- the hierarchical mesh composed with others
+def hier_trajectory(name, config, topo, inp, steps, impl="auto",
+                    quantize=None, device="cpu", seen=None):
+    """`steps` steps of family `name` through compile_model_train on
+    build_hierarchical_mesh(config, Topology(*topo)), from the numpy
+    weights inp["w/<name>/..."] and tokens inp["tokens"]: ([(loss,
+    grad_norm, step)], gathered final params, step 2's plain kernel calls
+    on this rank when `seen` (the Counter `_count_plain` fills) is given).
+    `quantize`: "int8_ef" for the int8 inter hop with error feedback."""
+    from ray_tpu_torch.parallel.mesh import (build_hierarchical_mesh,
+                                             model_submesh, use_mesh)
+    from ray_tpu_torch.train import spmd
+    from ray_tpu_torch.util.collective.hierarchy import Topology
+    from ray_tpu_torch.util.collective.quantize import QuantizedAllreduce
+
+    mod, cfg = family(name, attn_impl=impl)
+    mesh = build_hierarchical_mesh(config, Topology(*topo),
+                                   device_type=device)
+    q = (QuantizedAllreduce(dtype="int8", chunk=64, error_feedback=True)
+         if quantize == "int8_ef" else None)
+    opt = spmd.default_optimizer(lr=1e-3, warmup=2, total_steps=20)
+    train = spmd.compile_model_train(mod, cfg, mesh=mesh, optimizer=opt,
+                                     device=device, grad_quantize=q)
+    with use_mesh(model_submesh(mesh)):
+        specs = mod.param_specs(cfg)
+    params = spmd.shard_params(
+        mod.params_from_numpy(pipe_weights(inp, name), cfg, device),
+        model_submesh(mesh), specs)
+    state = spmd.TrainState(0, params, opt.init(params))
+    ef = None
+    if train.init_ef_fn is not None:   # the residual is sized by init_fn
+        train.init_fn(torch.Generator())
+        ef = train.init_ef_fn()
+    batch = {"tokens": inp["tokens"]}
+    hist, calls = [], {}
+    for i in range(steps):
+        if seen is not None:
+            seen.clear()
+        if ef is None:
+            state, m = train.step_fn(state, batch)
+        else:
+            state, m, ef = train.step_fn(state, batch, ef)
+        if seen is not None and i == 1:
+            calls = dict(seen)
+        hist.append((float(m["loss"]), float(m["grad_norm"]), m["step"]))
+    return hist, mod.params_to_numpy(spmd.unshard(state.params)), calls
+
+
+def hier_ranks(rank, world, tmp, runs, steps):
+    """Each run (name, config, (inter, intra), impl, quantize) as a
+    `hier_trajectory` (final params on rank 0 only); then, on the first
+    run's mesh, one timed step against one fused step from the same
+    weights (params gathered, the timed step's phases)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import build_hierarchical_mesh
+    from ray_tpu_torch.train import spmd
+    from ray_tpu_torch.util.collective.hierarchy import Topology
+
+    inp = _inputs(tmp)
+    _default_group(rank, world, tmp)
+    seen = _count_plain()
+    out = {}
+    for run in runs:
+        hist, params, calls = hier_trajectory(*run[:3], inp, steps, *run[3:],
+                                              seen=seen)
+        out[hier_key(*run)] = (hist, params if rank == 0 else None, calls)
+    name, config, topo = runs[0][:3]
+    mod, cfg = family(name)
+    mesh = build_hierarchical_mesh(config, Topology(*topo),
+                                   device_type="cpu")
+    finals = []
+    for timed in (False, True):
+        opt = spmd.default_optimizer(lr=1e-3, warmup=2, total_steps=20)
+        train = spmd.compile_model_train(mod, cfg, mesh=mesh, optimizer=opt,
+                                         device="cpu", phase_timing=True)
+        state = train.init_fn(torch.Generator().manual_seed(0))
+        fn = train.timed_step_fn if timed else train.step_fn
+        state, m = fn(state, {"tokens": inp["tokens"]})
+        finals.append((mod.params_to_numpy(spmd.unshard(state.params)),
+                       float(m["loss"]), m.get("phases")))
+    out["timed"] = finals
+    dist.destroy_process_group()
+    return out
+
+
+def hier_key(name, config, topo, impl="auto", quantize=None) -> tuple:
+    return (name, tuple(sorted(config.items())), tuple(topo), impl, quantize)
+
+
 # ------------------------------------------------- meshes of dp/fsdp/tp/ep
 FAMILIES = {"gpt2": ("gpt2", "GPT2Config", "gpt2-tiny"),
             "llama": ("llama", "LlamaConfig", "llama-tiny"),
@@ -949,11 +1039,23 @@ def checkpoint_ranks(rank, world, tmp):
 PIPE_M = 4          # microbatches
 
 
-def pipe_family(name):
+def pipe_family(name, impl="auto"):
     """(module, f32 config) of the JAX package's pipeline tests: gpt2-tiny
-    at 4 layers, llama-tiny, no remat."""
-    return family(name, remat=False,
+    at 4 layers, llama-tiny, no remat; attention by `impl` (auto: ring on a
+    mesh with sp)."""
+    return family(name, remat=False, attn_impl=impl,
                   **({"n_layer": 4} if name == "gpt2" else {}))
+
+
+def pipe_run(run) -> tuple:
+    """A pipeline test's run, (name, config) or (name, config, impl), as
+    (name, config, impl)."""
+    name, config, *impl = run
+    return name, config, (impl or ["auto"])[0]
+
+
+def pipe_key(kind, name, config, impl="auto") -> tuple:
+    return (kind, name, tuple(sorted(config.items())), impl)
 
 
 def pipe_params(mod, cfg, flat, mesh):
@@ -993,61 +1095,74 @@ def pipe_weights(inp, name) -> dict:
             if k.startswith(prefix)}
 
 
-def pipe_train(name, mesh, opt):
+def pipe_train(name, mesh, opt, impl="auto"):
     """compile_pipeline_train of family `name` on `mesh` (a build_mesh
     mesh, or a MeshConfig of pp alone)."""
     from ray_tpu_torch.train import spmd
 
-    mod, cfg = pipe_family(name)
+    mod, cfg = pipe_family(name, impl)
     return mod, cfg, spmd.compile_pipeline_train(mod, cfg, mesh, PIPE_M,
                                                  optimizer=opt, device="cpu")
 
 
 def pipeline_ranks(rank, world, tmp, fwd, traj, steps, restore=None):
-    """Each (name, config) of `fwd`: the pipelined logits from the numpy
-    weights inp["w/<name>/..."]; of `traj`: `steps` steps through
-    compile_pipeline_train ([(loss, grad_norm, step)], gathered params on
-    rank 0). On two ranks (pp=2), also gpt2's loss and gathered gradients
-    at those weights (grad_fn), and its state after the trajectory saved
-    to tmp/port-pp with both ranks' leaves. With `restore` (a checkpoint
-    of gpt2's state), it restored onto the first gpt2 trajectory's
-    program, leaves gathered."""
+    """Each run (`pipe_run`) of `fwd`: the pipelined logits from the numpy
+    weights inp["w/<name>/..."], with the bytes accounted and the flash
+    kernels' plain versions' calls on this rank; of `traj`: `steps` steps
+    through compile_pipeline_train ([(loss, grad_norm, step)], gathered
+    params on rank 0, step 2's plain kernel calls on this rank). On two
+    ranks (pp=2), also gpt2's loss and gathered gradients at those weights
+    (grad_fn), and its state after the trajectory saved to tmp/port-pp
+    with both ranks' leaves. With `restore` (a checkpoint of gpt2's
+    state), it restored onto the first gpt2 trajectory's program, leaves
+    gathered."""
     import torch.distributed as dist
 
     from ray_tpu_torch.parallel.mesh import axis_size, build_mesh
     from ray_tpu_torch.train import spmd
+    from ray_tpu_torch.util.collective import hierarchy as H
 
     inp = _inputs(tmp)
     _default_group(rank, world, tmp)
+    seen = _count_plain()
     tokens = torch.from_numpy(inp["tokens"])
     out = {}
-    for name, config in fwd:
-        mod, cfg = pipe_family(name)
+    for run in fwd:
+        name, config, impl = pipe_run(run)
+        mod, cfg = pipe_family(name, impl)
         mesh = build_mesh(config, device_type="cpu")
         params = pipe_params(mod, cfg, pipe_weights(inp, name), mesh)
-        out[("fwd", name, tuple(sorted(config.items())))] = pipe_logits(
-            mod, cfg, params, tokens[:, :-1], axis_size(mesh, "pp"), mesh)
-    for name, config in traj:
+        seen.clear()
+        H.BYTES.clear()
+        logits = pipe_logits(mod, cfg, params, tokens[:, :-1],
+                             axis_size(mesh, "pp"), mesh)
+        out[pipe_key("fwd", name, config, impl)] = (logits, dict(H.BYTES),
+                                                    dict(seen))
+    for run in traj:
+        name, config, impl = pipe_run(run)
         mesh = build_mesh(config, device_type="cpu")
         opt = spmd.default_optimizer(lr=1e-3, warmup=2, total_steps=20)
-        mod, cfg, train = pipe_train(name, mesh, opt)
+        mod, cfg, train = pipe_train(name, mesh, opt, impl)
         if restore is not None and name == "gpt2" and "restored" not in out:
             out["restored"] = state_numpy(spmd.restore_state_sharded(
                 restore, train))
         params = pipe_params(mod, cfg, pipe_weights(inp, name), mesh)
         state = spmd.TrainState(0, params, opt.init(params))
-        key = ("traj", name, tuple(sorted(config.items())))
+        key = pipe_key("traj", name, config, impl)
         if world == 2:
             loss, grads = train.grad_fn(state, {"tokens": tokens})
             out["grads"] = (loss.item(),
                             mod.params_to_numpy(spmd.unshard(grads)))
-        hist = []
-        for _ in range(steps):
+        hist, calls = [], {}
+        for i in range(steps):
+            seen.clear()
             state, m = train.step_fn(state, {"tokens": tokens})
+            if i == 1:
+                calls = dict(seen)
             hist.append((float(m["loss"]), float(m["grad_norm"]),
                          m["step"]))
         end = mod.params_to_numpy(spmd.unshard(state.params))
-        out[key] = (hist, end if rank == 0 else None)
+        out[key] = (hist, end if rank == 0 else None, calls)
         if world == 2:
             spmd.save_state_sharded(state, os.path.join(tmp, "port-pp"),
                                     world_size=world, process_index=rank)

@@ -598,6 +598,12 @@ def test_mesh_across_cards(cuda, tmp_path):
     paths = chip_smoke.mesh_pair(chip_smoke.gpu_line(),
                                  str(tmp_path / "pair"), "nccl")
     print(f"[mesh across cards] full width, rank 0's launches: {paths}")
+    # the hierarchical mesh Topology(2, 1) x tp=2 on the four cards:
+    # GPT-2-125M at global B=8 T=1024 against one process, same gates
+    (tmp_path / "hier").mkdir()
+    paths = chip_smoke.hier_cards(chip_smoke.gpu_line(),
+                                  str(tmp_path / "hier"))
+    print(f"[mesh across cards] hierarchical, rank 0's launches: {paths}")
 
 
 @pytest.mark.cuda
@@ -625,8 +631,11 @@ def test_pp_across_cards(cuda, tmp_path):
     # four cards, Llama-3-8B at full width and depth on pp=4 (B=8 T=2048, 8
     # microbatches, remat, 2 steps: step ms, tokens/s, MFU and peak memory
     # a rank printed), its first loss within 0.01 of one card's no-grad
-    # loss_fn at the same weights and batch; exact K1/K2/K3 launches a
-    # rank, bubble ticks included
+    # loss_fn at the same weights and batch; and TinyLlama-1.1B on pp=2 x
+    # sp=2 (B=4 T=4096, 4 microbatches, the ring running K1-K3 on chunk
+    # pairs inside every stage) within 0.01 loss and 2 % grad norm of the
+    # same first step on one card, its peak memory a rank printed beside
+    # the prediction; exact K1/K2/K3 launches a rank, bubble ticks included
     import chip_smoke
 
     n = torch.cuda.device_count()
@@ -634,7 +643,23 @@ def test_pp_across_cards(cuda, tmp_path):
         pytest.skip("needs two CUDA cards: NCCL refuses two ranks on one")
     card = chip_smoke.gpu_line()
     paths = {}
-    for fam in ("gpt2", "llama")[:1 + (n >= 4)]:
+    for fam in ("gpt2", "llama", "tinyllama-sp")[:1 + 2 * (n >= 4)]:
         (tmp_path / fam).mkdir()
         paths[fam] = chip_smoke.pp_cards(card, str(tmp_path / fam), fam)
     print(f"[pp across cards] K1/K2/K3 launches by rank: {paths}")
+
+
+@pytest.mark.cuda
+def test_tp_engine_across_cards(cuda):
+    # the tensor-parallel engine over two cards (one process, a shard a
+    # card) at chip_smoke phase 5's configuration against tp=1 on the
+    # first: every sampled logits row up to the first parting within
+    # chip_smoke.TOL_TP_LOGITS, streams equal but for near-ties under the
+    # same bound; tok/s and TTFT of a burst on each printed
+    import chip_smoke
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: a shard on each")
+    rec = chip_smoke.tp_engine_check(chip_smoke.gpu_line(),
+                                     ["cuda:0", "cuda:1"])
+    print(f"[tp engine across cards] {rec}")

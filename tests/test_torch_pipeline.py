@@ -13,12 +13,21 @@ seeded 8 x 17 token batch; weights are JAX's init, carried as numpy.
 - the pipelined forward (embed -> pipeline_apply -> unembed) against JAX's
   `pipeline_apply` on the same mesh and against the port's sequential
   forward, within atol=rtol=2e-4 (`tests/test_pipeline.py`'s bound):
-  virtual pp=2 and pp=4; gpt2 on pp=2,tp=2, pp=2,dp=2 and pp=2,fsdp=2
-  and llama on pp=2,dp=2 as gloo ranks;
+  virtual pp=2 and pp=4; gpt2 on pp=2,tp=2, pp=2,dp=2, pp=2,fsdp=2,
+  pp=2,ep=2 and pp=2,sp=2 (ring, and Ulysses), llama on pp=2,dp=2 and
+  pp=2,sp=2 (ring) as gloo ranks;
 - 5 steps of `compile_pipeline_train` against JAX's on the same mesh
-  (pp=2, pp=2,dp=2, pp=2,tp=2 for gpt2, pp=2,dp=2 for llama; virtual
-  pp=2 too): losses and grad norms within atol=1e-5, rtol=1e-4, final
-  params within 1e-4 (`test_torch_sharded.py`'s bounds);
+  (pp=2, pp=2,dp=2, pp=2,tp=2, pp=2,fsdp=2, pp=2,ep=2 and pp=2,sp=2 for
+  gpt2, pp=2,dp=2 and pp=2,sp=2 for llama; virtual pp=2 too): losses and
+  grad norms within atol=1e-5, rtol=1e-4, final params within 1e-4
+  (`test_torch_sharded.py`'s bounds);
+- with sp the port's ring (K1-K3 on chunk pairs inside every stage) is
+  held against JAX's run with dense attention on the same mesh: the JAX
+  package's ring and Ulysses open a shard_map that fails nested inside
+  its pipeline's, so dense is the configuration of the same math JAX runs
+  there. Each rank ran the kernels' plain versions once a live chunk pair
+  a tick and layer: (M + F - 1) x L/F x (sp rank + 1) of K1 in the
+  forward, and of K1, K2 and K3 in a training step (no remat);
 - the virtual stages bit-equal to two gloo ranks in f32: loss and every
   gradient of one `grad_fn`;
 - `pipeline_apply` of the reference MLP stages and its gradients against
@@ -41,6 +50,7 @@ import _torch_dist_workers as W
 import test_torch_sharded as S
 from ray_tpu.models import gpt2 as JG
 from ray_tpu.models import llama as JL
+from ray_tpu.models import moe as JMoE
 from ray_tpu.parallel import mesh as JM
 from ray_tpu.parallel import pipeline as JP
 from ray_tpu.train import checkpoint as JC
@@ -53,10 +63,16 @@ from ray_tpu_torch.util.collective import hierarchy as H
 TOL_FWD = dict(atol=2e-4, rtol=2e-4)
 STEPS = 5
 M = W.PIPE_M
+# a run is (name, mesh config) or (name, mesh config, the port's attn_impl)
 FWD_FOUR = [("gpt2", {"pp": 2, "tp": 2}), ("gpt2", {"pp": 2, "dp": 2}),
-            ("gpt2", {"pp": 2, "fsdp": 2}), ("llama", {"pp": 2, "dp": 2})]
+            ("gpt2", {"pp": 2, "fsdp": 2}), ("llama", {"pp": 2, "dp": 2}),
+            ("gpt2", {"pp": 2, "ep": 2}), ("gpt2", {"pp": 2, "sp": 2}),
+            ("llama", {"pp": 2, "sp": 2}),
+            ("gpt2", {"pp": 2, "sp": 2}, "ulysses")]
 TRAJ_FOUR = [("gpt2", {"pp": 2, "dp": 2}), ("gpt2", {"pp": 2, "tp": 2}),
-             ("llama", {"pp": 2, "dp": 2})]
+             ("llama", {"pp": 2, "dp": 2}), ("gpt2", {"pp": 2, "fsdp": 2}),
+             ("gpt2", {"pp": 2, "ep": 2}), ("gpt2", {"pp": 2, "sp": 2}),
+             ("llama", {"pp": 2, "sp": 2})]
 TRAJ_TWO = [("gpt2", {"pp": 2})]
 
 
@@ -64,12 +80,15 @@ def _tokens():
     return np.random.default_rng(10).integers(0, 512, (8, 17))
 
 
-def _cfg(name):
+def _cfg(name, config=None):
+    """JAX's config; on a mesh with sp, dense attention (its ring and
+    Ulysses fail inside the pipeline's shard_map)."""
+    kw = {"attn_impl": "dense"} if (config or {}).get("sp", 1) > 1 else {}
     if name == "gpt2":
         return JG, JG.GPT2Config.preset("gpt2-tiny", remat=False,
-                                        dtype=jnp.float32, n_layer=4)
+                                        dtype=jnp.float32, n_layer=4, **kw)
     return JL, JL.LlamaConfig.preset("llama-tiny", remat=False,
-                                     dtype=jnp.float32)
+                                     dtype=jnp.float32, **kw)
 
 
 def _mesh(config):
@@ -77,8 +96,13 @@ def _mesh(config):
     return JM.build_mesh(JM.MeshConfig(**config), devices=jax.devices()[:n])
 
 
-def _key(kind, name, config):
-    return (kind, name, tuple(sorted(config.items())))
+def _key(kind, name, config, impl="auto"):
+    return W.pipe_key(kind, name, config, impl)
+
+
+def _run_id(run):
+    name, config, impl = W.pipe_run(run)
+    return S.run_id(name, config) + ("" if impl == "auto" else f"-{impl}")
 
 
 def _jax_weights(name):
@@ -88,7 +112,7 @@ def _jax_weights(name):
 
 def _jax_logits(name, config, tokens):
     """JAX's pipelined forward on build_mesh(config)."""
-    jmod, cfg = _cfg(name)
+    jmod, cfg = _cfg(name, config)
     params = jmod.init_params(jax.random.key(0), cfg)
     mesh = _mesh(config)
     F = config["pp"]
@@ -108,7 +132,7 @@ def _jax_logits(name, config, tokens):
 def _jax_trajectory(name, config):
     """JAX's compile_pipeline_train on build_mesh(config): (init weights,
     [(loss, grad_norm, step)], final weights, the program, its state)."""
-    jmod, cfg = _cfg(name)
+    jmod, cfg = _cfg(name, config)
     train = JS.compile_pipeline_train(
         jmod, cfg, _mesh(config), n_microbatches=M,
         optimizer=JS.default_optimizer(**S.OPT))
@@ -126,12 +150,12 @@ def _jax_trajectory(name, config):
 @pytest.fixture(scope="module")
 def jax_runs():
     return {_key("traj", n, c): _jax_trajectory(n, c)
-            for n, c in TRAJ_FOUR + TRAJ_TWO}
+            for n, c, _ in map(W.pipe_run, TRAJ_FOUR + TRAJ_TWO)}
 
 
 def _spawn(tmp_path_factory, world, fwd, traj, restore=None):
     tmp = tmp_path_factory.mktemp(f"pipe{world}")
-    names = {n for n, _ in fwd + traj}
+    names = {r[0] for r in fwd + traj}
     np.savez(tmp / "inputs.npz", tokens=_tokens(),
              **{f"w/{n}/{k}": v for n in names
                 for k, v in _jax_weights(n).items()})
@@ -185,17 +209,38 @@ def test_virtual_forward_matches_jax_and_sequential(F):
     np.testing.assert_allclose(got.numpy(), seq.numpy(), **TOL_FWD)
 
 
-@pytest.mark.parametrize("run", FWD_FOUR, ids=lambda r: S.run_id(*r))
+def _ring_calls(rank, name, config, kernels):
+    """The plain kernels' calls a ring run makes on `rank`: one a live chunk
+    pair (sp rank + 1 of them) a tick and a layer of its stage."""
+    dims = [a for a in JM.MESH_AXES if config.get(a, 1) > 1]
+    sp_rank = (rank // int(np.prod([config[a] for a in
+                                    dims[dims.index("sp") + 1:]]))
+               ) % config["sp"]
+    F = config["pp"]
+    n = (M + F - 1) * W.pipe_family(name)[1].n_layer // F * (sp_rank + 1)
+    return {k: n for k in kernels}
+
+
+@pytest.mark.parametrize("run", FWD_FOUR, ids=_run_id)
 def test_ranks_forward_matches_jax(four, run):
-    name, config = run
+    name, config, impl = W.pipe_run(run)
     want = _jax_logits(name, config, _tokens()[:, :-1])
     mod, cfg, params = _port_params(name)
     with torch.no_grad():
         seq = mod.forward(params, torch.from_numpy(_tokens()[:, :-1]), cfg)
-    for o in four:
-        got = o[_key("fwd", name, config)].numpy()
-        np.testing.assert_allclose(got, want, **TOL_FWD)
-        np.testing.assert_allclose(got, seq.numpy(), **TOL_FWD)
+    x_bytes = _tokens()[:, :-1].size * cfg.d_model * 4
+    F = config["pp"]
+    for rank, o in enumerate(four):
+        got, nbytes, calls = o[_key("fwd", name, config, impl)]
+        np.testing.assert_allclose(got.numpy(), want, **TOL_FWD)
+        np.testing.assert_allclose(got.numpy(), seq.numpy(), **TOL_FWD)
+        # JAX's count, of the whole activation: with dp or sp each pp
+        # group's hops carry its shard, and the groups' shards make it up
+        assert nbytes[("pipeline.ppermute", "float32", "intra")] == \
+            (M + F - 1) * F * (x_bytes // M)
+        if config.get("sp", 1) > 1 and impl == "auto":
+            assert calls == _ring_calls(rank, name, config,
+                                        ["flash_attention_reference"])
 
 
 def test_mlp_stages_match_jax_and_run_in_order():
@@ -232,18 +277,24 @@ def test_mlp_stages_match_jax_and_run_in_order():
 
 # ----------------------------------------------------------- training
 
-@pytest.mark.parametrize("run", TRAJ_FOUR, ids=lambda r: S.run_id(*r))
+@pytest.mark.parametrize("run", TRAJ_FOUR, ids=_run_id)
 def test_four_rank_trajectory_matches_jax(four, jax_runs, run):
-    hist, end = four[0][_key("traj", *run)]
-    _check_trajectory(hist, end, jax_runs[_key("traj", *run)])
-    for o in four[1:]:
-        assert o[_key("traj", *run)][0] == hist
+    name, config, _ = W.pipe_run(run)
+    hist, end, _ = four[0][_key("traj", name, config)]
+    _check_trajectory(hist, end, jax_runs[_key("traj", name, config)])
+    for rank, o in enumerate(four):
+        got, _, calls = o[_key("traj", name, config)]
+        assert got == hist
+        if config.get("sp", 1) > 1:
+            assert calls == _ring_calls(rank, name, config, [
+                "flash_attention_reference", "_bwd_dq_reference",
+                "_bwd_dkv_reference"])
 
 
 def test_two_rank_trajectory_matches_jax(two, jax_runs):
     _, outs = two
     run = TRAJ_TWO[0]
-    hist, end = outs[0][_key("traj", *run)]
+    hist, end, _ = outs[0][_key("traj", *run)]
     _check_trajectory(hist, end, jax_runs[_key("traj", *run)])
     assert outs[1][_key("traj", *run)][0] == hist
 
@@ -307,6 +358,16 @@ def test_microbatch_errors_and_single_stage_path():
     with pytest.raises(ValueError, match="pp alone"):
         PS.compile_pipeline_train(mod, cfg, {"pp": 2, "dp": 2}, M,
                                   device="cpu")
+
+
+def test_moe_pipeline_refused_as_jax_has_none():
+    # the JAX pipeline names gpt2 and llama (its moe has no embed/unembed
+    # and its blocks carry the router's aux loss)
+    mod, cfg = W.family("moe")
+    with pytest.raises(NotImplementedError, match="gpt2 and llama"):
+        PS.compile_pipeline_train(mod, cfg, MeshConfig(pp=2), M,
+                                  device="cpu")
+    assert not hasattr(JMoE, "embed") and not hasattr(JMoE, "unembed")
 
 
 @pytest.mark.parametrize("F,Mb", [(2, 4), (4, 4), (4, 8)])

@@ -262,6 +262,7 @@ def test_engine_without_device_needs_cuda():
 
 
 def test_engine_rejects_tensor_parallel():
-    with pytest.raises(NotImplementedError):
-        PS.LLMEngine(preset="gpt2-tiny", tensor_parallel_size=2,
+    # tp runs (test_torch_serve_tp.py) where it divides n_head and d_ff
+    with pytest.raises(ValueError, match="divide n_head"):
+        PS.LLMEngine(preset="gpt2-tiny", tensor_parallel_size=3,
                      device="cpu")
