@@ -103,7 +103,22 @@ Phases, each reported on its own line:
    card at phase 5's configuration against tp=1 (tp_engine_check): every
    sampled logits row up to the first parting within TOL_TP_LOGITS, the
    greedy streams equal or parting only at near-ties under that bound,
-   tok/s and TTFT of a burst on each.
+   tok/s and TTFT of a burst on each;
+14. the core runtime on the card (phase_runtime): ray_tpu_torch.init with
+   the GPUs detected (equal to torch.cuda.device_count()) and the head
+   holding no CUDA context (absent from nvidia-smi's compute pids, no
+   libcuda mapped); phase 5's server in a num_gpus=1 actor answering
+   prompts a and b with the greedy tokens of the same server in this
+   process and a's first-token logits (gpt2.forward: K1) within
+   TOL_LOGITS; one step of phase 6's training in a num_gpus=1 task within
+   0.01 loss and 2 % grad norm of the same step here; the actor's and the
+   task's K1/K2/K3 launches, counted in their own processes, exactly as
+   stated before the run; a task's 256 MiB bf16 CUDA tensor got back as a
+   bit-equal CPU tensor with its bytes out of band; the get timed as a
+   latency, puts of the same bytes (a CPU tensor, a numpy array, the CUDA
+   tensor) into untouched and into reused arena pages, a host memcpy into
+   a fresh and a touched buffer, a worker's start and warm round trips of
+   an actor call and a no-op task.
 Phase 10 also runs the ring at a ragged chunk (Llama-3-8B widths,
 T=16000 on sp=4: chunks of 4000 padded to 4096, the padded keys masked by
 K1's and K2's kv_len) and holds each padded chunk pair against the plain
@@ -3017,7 +3032,433 @@ def phase_moe(card: str) -> tuple:
     return path
 
 
+# ------------------------------------------------ phase 14: the runtime
+# The core runtime drives the card: the head and its workers are the
+# port's (ray_tpu_torch.core), GPUs are detected as the "GPU" resource, a
+# num_gpus=1 actor serves phase 5's model and a num_gpus=1 task takes one
+# step of phase 6's, each counting its own launches. The actor answers
+# prompts a and b and computes a's first-token logits through
+# gpt2.forward (K1 once a layer at T=256, the engine's prefill being
+# dense); the task takes one step (K1 twice a layer under remat, K2 and
+# K3 once).
+RUNTIME_CPUS = 4
+RUNTIME_OBJECT_BYTES = 256 << 20
+RUNTIME_NEW = 32
+RUNTIME_SPAWN_S = 600
+RUNTIME_TRIPS = 20
+
+
+def _no_tf32() -> None:
+    """main()'s TF32 settings, in an actor or task's own process. The
+    backends' modules are looked up by name: cloudpickle cannot ship a
+    function that names `torch.backends.cuda` or `.cudnn` (module
+    subclasses) by value."""
+    import importlib
+
+    importlib.import_module("torch.backends.cuda").matmul.allow_tf32 = False
+    importlib.import_module("torch.backends.cudnn").allow_tf32 = False
+
+
+def _rt_prompts() -> tuple:
+    """phase 5's prompts a (256 tokens: forward takes K1) and b (300)."""
+    shared = _prompt(1, 192)
+    return _prompt(2, 256, shared), _prompt(3, 300, shared)
+
+
+def _rt_serve(server, prompts) -> tuple:
+    """Greedy tokens of each prompt, solo and in order, and the first
+    prompt's first-token logits through gpt2.forward on the engine's
+    device, brought to the CPU."""
+    tokens = [server({"prompt_ids": p, "max_tokens": RUNTIME_NEW})
+              ["choices"][0]["token_ids"] for p in prompts]
+    eng = server.engine
+    with torch.inference_mode():
+        ids = torch.tensor([prompts[0]], device=eng.device)
+        logits = gpt2.forward(eng.params, ids, eng.cfg)[0, -1].float().cpu()
+    return tokens, logits
+
+
+def _rt_server():
+    return LLMServer(preset=PRESET, max_batch=4, max_seq_len=SERVE_WINDOW,
+                     seed=0, prefill_chunk_size=64, kv_block_size=16,
+                     kv_blocks=64, device=DEVICE)
+
+
+class RuntimeServer:
+    """Phase 5's server in an actor of its own (num_gpus=1)."""
+
+    def __init__(self):
+        _no_tf32()
+        self.server = _rt_server()
+
+    def serve(self, prompts) -> tuple:
+        """(tokens, logits, launches counted in this process, pid)."""
+        _zero_counts()
+        tokens, logits = _rt_serve(self.server, prompts)
+        return tokens, logits, _flash_counts(), os.getpid()
+
+
+def _rt_train_step() -> dict:
+    """One step of phase 6's configuration from its seeded params and batch
+    (in the driver, or in a task): loss, grad norm, this process's
+    launches and peak memory, and what the process has loaded."""
+    _no_tf32()
+    cfg = gpt2.GPT2Config.preset(PRESET, attn_impl="flash", remat=True,
+                                 remat_policy="dots", ce_chunk=0)
+    opt = spmd.default_optimizer(lr=6e-4, warmup=2, total_steps=1000)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, SEQ + 1),
+                           generator=torch.Generator().manual_seed(1))
+    train = spmd.compile_model_train(gpt2, cfg, optimizer=opt, device=DEVICE)
+    state = train.init_fn(torch.Generator(device="cpu").manual_seed(0))
+    on_card = torch.device(DEVICE).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    state, m = train.step_fn(state, {"tokens": tokens.to(DEVICE)})
+    loss, grad_norm = float(m["loss"]), float(m["grad_norm"])   # syncs
+    main = sys.modules["__main__"]
+    return {"loss": loss, "grad_norm": grad_norm, "ms": 1e3 * (
+                time.perf_counter() - t0),
+            "launches": _flash_counts(),
+            "peak_gb": (torch.cuda.max_memory_allocated() / 1e9 if on_card
+                        else 0.0),
+            "foreign": sorted(n for n in sys.modules if n.split(".")[0] in (
+                "jax", "jaxlib", "ray_tpu")),
+            "main": getattr(main.__spec__, "name", None), "pid": os.getpid()}
+
+
+def _rt_object(nbytes: int):
+    """A seeded bf16 tensor of `nbytes` on the card."""
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    return torch.randn(nbytes // 2, generator=g, device=DEVICE,
+                       dtype=torch.bfloat16)
+
+
+def _cuda_pids() -> list:
+    """The pids holding a CUDA context on the card, as nvidia-smi sees
+    them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def _driver_libs(pid: int) -> list:
+    """The NVIDIA and CUDA libraries the process has mapped (the CUDA
+    driver, libcuda, is mapped by any process that opens a context)."""
+    with open(f"/proc/{pid}/maps") as f:
+        paths = {line.split()[-1] for line in f if "/" in line}
+    return sorted(os.path.basename(p) for p in paths
+                  if "cuda" in os.path.basename(p).lower()
+                  or "nvidia" in os.path.basename(p).lower())
+
+
+def _wait_exit(pid: int, timeout: float = 60.0) -> float:
+    """Seconds until `pid` has exited (gone, or a zombie: its CUDA context
+    is released by then)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                    break
+        except FileNotFoundError:
+            break
+        time.sleep(0.05)
+    else:
+        raise AssertionError(f"process {pid} did not exit in {timeout} s")
+    return time.perf_counter() - t0
+
+
+class RuntimePing:
+    """An actor that answers at once (its worker imports no torch)."""
+
+    def ping(self) -> int:
+        return os.getpid()
+
+
+def _rt_noop() -> int:
+    return 0
+
+
+def _round_trips(rt, submit) -> list:
+    """ms of RUNTIME_TRIPS calls, one at a time: submit, then get."""
+    out = []
+    for _ in range(RUNTIME_TRIPS):
+        t0 = time.perf_counter()
+        rt.get(submit(), timeout=RUNTIME_SPAWN_S)
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def _timed_puts(rt, client, values: dict) -> tuple:
+    """Seconds of a put of each value, its ref, and the address of its
+    bytes in the arena (None outside it)."""
+    import numpy as np
+
+    secs, refs, addrs = {}, {}, {}
+    arena = client.store._get_arena()
+    for k, v in values.items():
+        t0 = time.perf_counter()
+        refs[k] = rt.put(v)
+        secs[k] = time.perf_counter() - t0
+        addrs[k] = (np.frombuffer(arena.get(refs[k].id.binary(), pin=False),
+                                  np.uint8).ctypes.data
+                    if client.local_metas[refs[k].id].kind == "arena"
+                    else None)
+    return secs, refs, addrs
+
+
+def _free_and_wait(rt, client, refs) -> None:
+    """Free `refs` and wait until the arena no longer holds them, so the
+    next puts reuse their pages."""
+    rt.free(refs)
+    arena = client.store._get_arena()
+    deadline = time.perf_counter() + 60
+    while arena is not None and any(arena.contains(r.id.binary())
+                                    for r in refs):
+        if time.perf_counter() > deadline:
+            raise AssertionError("freed objects still in the arena")
+        time.sleep(0.01)
+
+
+def _first_touch(array) -> tuple:
+    """Seconds of a host memcpy of `array` into a fresh buffer and into the
+    same buffer again, then into a fresh shared-memory segment (the pages
+    the store's arena is made of) and into it again: the cost of touching
+    new pages of either kind, apart from any store."""
+    from multiprocessing import shared_memory
+
+    import numpy as np
+
+    src = array.view(np.uint8).reshape(-1)
+
+    def twice(dst) -> list:
+        out = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            np.copyto(dst, src)
+            out.append(time.perf_counter() - t0)
+        return out
+
+    times = twice(np.empty(array.nbytes, np.uint8))
+    shm = shared_memory.SharedMemory(create=True, size=array.nbytes)
+    try:
+        dst = np.frombuffer(shm.buf, np.uint8)
+        times += twice(dst)
+        del dst
+    finally:
+        shm.close()
+        shm.unlink()
+    return tuple(times)
+
+
+def _runtime_launch_check(what: str, got: tuple, want: tuple) -> None:
+    if tuple(got) != tuple(want):
+        raise AssertionError(f"{what}: K1/K2/K3 launches {got} != {want}")
+
+
+def phase_runtime(card: str) -> dict:
+    """The runtime on the card: GPUs detected; the head holds no CUDA
+    context; phase 5's server in a num_gpus=1 actor against the same
+    server in this process; one step of phase 6's training in a
+    num_gpus=1 task against the same step here; a 256 MiB bf16 CUDA tensor
+    returned by a task and got back bit-equal, out of band. Returns the
+    actor's and the task's launches, counted in their own processes."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api as rt_api
+    from ray_tpu_torch.core import native_store
+
+    cfg = gpt2.GPT2Config.preset(PRESET)
+    want_actor = (cfg.n_layer, 0, 0)
+    want_task = (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer)
+    prompts = _rt_prompts()
+    # this process's reference step first: its state is freed before the
+    # task's step, so two copies of phase 6's state never share the card
+    ref_step = _rt_train_step()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_init = time.perf_counter()
+    info = rt.init(num_cpus=RUNTIME_CPUS)    # GPUs detected, not passed
+    init_s = time.perf_counter() - t_init
+    try:
+        gpus = rt.cluster_resources().get("GPU", 0)
+        head_pid = rt_api._head_proc.pid
+        log(f"[runtime] session {info['session']}: init {init_s * 1e3:.0f} "
+            f"ms, head pid {head_pid}, cluster {rt.cluster_resources()}; "
+            f"GPUs detected {gpus:g}, torch.cuda.device_count() "
+            f"{torch.cuda.device_count()}; store: "
+            + ("native arena (csrc/arena_store.cc, g++)"
+               if native_store.native_available()
+               else "per-object shm segments (no compiler)"))
+        if gpus != torch.cuda.device_count():
+            raise AssertionError(f"GPUs detected {gpus} != "
+                                 f"{torch.cuda.device_count()}")
+        # a worker's start: the cluster has none yet, so the first actor's
+        # first call waits for one to be spawned and to register
+        t0 = time.perf_counter()
+        pinger = rt.remote(num_cpus=0)(RuntimePing).remote()
+        ping_pid = rt.get(pinger.ping.remote(), timeout=RUNTIME_SPAWN_S)
+        log(f"[runtime] worker start (the first actor's first call: its "
+            f"worker, pid {ping_pid}, spawned, the port's core imported, no "
+            f"torch) {1e3 * (time.perf_counter() - t0):.1f} ms")
+
+        # serving: the actor's server against this process's
+        t0 = time.perf_counter()
+        actor = rt.remote(num_gpus=1)(RuntimeServer).remote()
+        a_tokens, a_logits, a_launches, a_pid = rt.get(
+            actor.serve.remote(prompts), timeout=RUNTIME_SPAWN_S)
+        serve_s = time.perf_counter() - t0
+        pids = _cuda_pids()
+        log(f"[runtime] actor pid {a_pid} (num_gpus=1): {PRESET} server "
+            f"built and prompts a, b answered in {serve_s:.2f} s (worker "
+            f"start, torch import and build included); nvidia-smi compute "
+            f"pids {pids} (the head's {head_pid}); driver libraries mapped "
+            f"by the head {_driver_libs(head_pid)}, by the actor "
+            f"{_driver_libs(a_pid)}")
+        if head_pid in pids or any(lib.startswith("libcuda.")
+                                   for lib in _driver_libs(head_pid)):
+            raise AssertionError("the head holds a CUDA context")
+        rt.kill(actor)
+        exit_s = _wait_exit(a_pid)
+        server = _rt_server()
+        try:
+            d_tokens, d_logits = _rt_serve(server, prompts)
+        finally:
+            server.shutdown()
+        gap = float((a_logits - d_logits).abs().max())
+        same = a_tokens == d_tokens
+        log(f"[runtime] actor vs this process: greedy tokens of a and b "
+            f"equal: {same}; first-token logits max |d| {gap:.4g} (tol "
+            f"{TOL_LOGITS}), bit-equal {torch.equal(a_logits, d_logits)}; "
+            f"actor launches K1/K2/K3 {a_launches} (want {want_actor}); "
+            f"actor killed, its process gone in {exit_s:.2f} s")
+        if not same:
+            raise AssertionError("the actor's greedy tokens differ")
+        if gap > TOL_LOGITS:
+            raise AssertionError("the actor's first-token logits differ")
+        _runtime_launch_check("actor", a_launches, want_actor)
+
+        # training: one step in a task against this process's
+        t0 = time.perf_counter()
+        step = rt.get(rt.remote(num_gpus=1, max_retries=0)(
+            _rt_train_step).remote(), timeout=RUNTIME_SPAWN_S)
+        task_s = time.perf_counter() - t0
+        d_loss = abs(step["loss"] - ref_step["loss"])
+        d_norm = abs(step["grad_norm"] / ref_step["grad_norm"] - 1)
+        log(f"[runtime] task pid {step['pid']} (num_gpus=1, __main__ "
+            f"{step['main']}, foreign modules {step['foreign']}): one "
+            f"{PRESET} step B={TRAIN_B} T={SEQ} remat=dots loss "
+            f"{step['loss']:.6f} grad_norm {step['grad_norm']:.6f} vs this "
+            f"process {ref_step['loss']:.6f} {ref_step['grad_norm']:.6f}: "
+            f"|dloss| {d_loss:.3g} (tol {TOL_TRAIN_LOSS}), |dgrad_norm|/"
+            f"grad_norm {d_norm:.3g} (tol {TOL_TRAIN_GRAD_NORM}), bit-equal "
+            f"{step['loss'] == ref_step['loss'] and step['grad_norm'] == ref_step['grad_norm']}; "
+            f"step {step['ms']:.1f} ms in the task (its first, compile-free "
+            f"but cold) vs {ref_step['ms']:.1f} ms here; peak memory "
+            f"{step['peak_gb']:.2f} GB task, {ref_step['peak_gb']:.2f} GB "
+            f"here; task round trip {task_s:.2f} s; launches K1/K2/K3 "
+            f"{step['launches']} (want {want_task})")
+        if step["foreign"] or step["main"] != "ray_tpu_torch.core.worker_main":
+            raise AssertionError("the task's worker is not the port's")
+        if d_loss > TOL_TRAIN_LOSS or d_norm > TOL_TRAIN_GRAD_NORM:
+            raise AssertionError("the task's step disagrees with this "
+                                 "process's")
+        _runtime_launch_check("task", step["launches"], want_task)
+
+        # objects: a 256 MiB bf16 CUDA tensor through the store
+        client = rt_api._global_client()
+        nbytes = RUNTIME_OBJECT_BYTES
+        ref = rt.remote(num_gpus=1)(_rt_object).remote(nbytes)
+        rt.wait([ref], timeout=RUNTIME_SPAWN_S)
+        t0 = time.perf_counter()
+        got = rt.get(ref)
+        get_ms = 1e3 * (time.perf_counter() - t0)
+        want = _rt_object(nbytes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = want.cpu()
+        d2h_s = time.perf_counter() - t0
+        # puts of the same bytes as a CPU tensor, a numpy array and the
+        # tensor on the card: first into arena pages this process has
+        # never touched, then, after those are freed, again
+        values = {"tensor": host, "numpy": host.view(torch.int16).numpy(),
+                  "card": want}
+        cold, refs, cold_at = _timed_puts(rt, client, values)
+        kinds = {k: client.local_metas[r.id].kind for k, r in refs.items()}
+        t0 = time.perf_counter()
+        back = rt.get(refs["card"]).to(DEVICE)
+        torch.cuda.synchronize()
+        back_s = time.perf_counter() - t0
+        _free_and_wait(rt, client, list(refs.values()))
+        warm, refs, warm_at = _timed_puts(rt, client, values)
+        _free_and_wait(rt, client, list(refs.values()))
+        reused = sorted(k for k in values if warm_at[k] is not None
+                        and warm_at[k] in cold_at.values())
+        touch = _first_touch(values["numpy"])
+        meta = client.local_metas[ref.id]
+        ser = client.read_serialized(meta)
+        bit_equal = (got.dtype == torch.bfloat16 and got.device.type == "cpu"
+                     and torch.equal(got.view(torch.int16),
+                                     want.cpu().view(torch.int16))
+                     and torch.equal(back.view(torch.int16),
+                                     want.view(torch.int16)))
+        gbps = lambda s: nbytes / s / 1e9   # noqa: E731
+        log(f"[runtime] object: a task's {nbytes >> 20} MiB bf16 CUDA "
+            f"tensor came back as a {got.device.type} {got.dtype} tensor "
+            f"{tuple(got.shape)}, bit-equal {bit_equal}; store kind "
+            f"{meta.kind}, pickle meta {len(ser.meta)} B, {len(ser.buffers)} "
+            f"out-of-band buffer(s) of {[b.nbytes for b in ser.buffers]} B; "
+            f"get (shm -> CPU tensor viewing shm, no copy) {get_ms:.3f} ms; "
+            f".cpu() {gbps(d2h_s):.2f} GB/s; put GB/s into untouched arena "
+            f"pages / into pages freed and reused: "
+            + "; ".join(f"{k} {gbps(cold[k]):.2f} / {gbps(warm[k]):.2f}"
+                        for k in values)
+            + f" (kinds {kinds}; the second puts at the first puts' "
+            f"addresses: {reused}); get and back onto the card "
+            f"{gbps(back_s):.2f} GB/s; host memcpy of the bytes into a fresh "
+            f"buffer {gbps(touch[0]):.2f} GB/s, into the same buffer again "
+            f"{gbps(touch[1]):.2f} GB/s, into a fresh shm segment "
+            f"{gbps(touch[2]):.2f} GB/s, into the same segment again "
+            f"{gbps(touch[3]):.2f} GB/s; on {card}")
+        if not bit_equal:
+            raise AssertionError("the tensor did not come back bit-equal")
+        if len(ser.meta) >= 1024 or [b.nbytes for b in ser.buffers] != [
+                nbytes]:
+            raise AssertionError("the tensor's bytes did not go out of band")
+        del got, want, back, host, values
+
+        # round trips on warm workers: the first actor's calls, and no-op
+        # tasks
+        actor_ms = _round_trips(rt, lambda: pinger.ping.remote())
+        rt.kill(pinger)
+        noop = rt.remote(_rt_noop)
+        task_ms = _round_trips(rt, lambda: noop.remote())
+        log(f"[runtime] round trip median of {RUNTIME_TRIPS} "
+            f"(min, max): actor call {statistics.median(actor_ms):.3f} ms "
+            f"({min(actor_ms):.3f}, {max(actor_ms):.3f}), no-op task "
+            f"{statistics.median(task_ms):.3f} ms ({min(task_ms):.3f}, "
+            f"{max(task_ms):.3f}; its first, {task_ms[0]:.3f} ms, "
+            f"included)")
+    finally:
+        _shutdown_runtime(rt, rt_api)
+    return {"runtime actor serve": tuple(a_launches),
+            "runtime task train": tuple(step["launches"])}
+
+
+def _shutdown_runtime(rt, rt_api) -> None:
+    """rt.shutdown(), then check that every worker the head started is
+    gone (the head kills them as it stops)."""
+    pids = [w["pid"] for w in rt_api._global_client().head_request(
+        "list_state", kind="workers") if not w["is_driver"]]
+    rt.shutdown()
+    for pid in pids:
+        _wait_exit(pid, timeout=30.0)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -3102,6 +3543,14 @@ def main() -> int:
     t0 = time.perf_counter()
     paths[f"{PRESET} hierarchical 7-D world 1 train"] = phase_compose(card)
     log(f"[compose] phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # the runtime: an actor's and a task's launches, each counted in its
+    # own process from 0
+    t0 = time.perf_counter()
+    paths.update(phase_runtime(card))
+    log(f"[runtime] phase {time.perf_counter() - t0:.1f} s; script so far "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(f"[paths] K1/K2/K3 launches by path: {paths}")
 
     # each kernel's records by case: the GPT-2 training path's fill the

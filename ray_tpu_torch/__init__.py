@@ -32,5 +32,36 @@ Ported so far:
 - all three flash-attention kernels of the JAX package as hand-written
   sm_90a CUDA kernels behind one `torch.autograd.Function`
   (`ops.flash_attention`; forward `csrc/flash_fwd.cu`, backward dQ and
-  dK/dV `csrc/flash_bwd.cu`).
+  dK/dV `csrc/flash_bwd.cu`);
+- the core runtime on one node (`core`: head, workers, tasks, actors,
+  shared-memory objects with the native arena `csrc/arena_store.cc`,
+  placement groups, GPUs as the "GPU" resource counted by `num_gpus`), with
+  `util.metrics` and `util.tracing`; actors meet in collective groups
+  through the head's KV (`util.collective.create_collective_group`). Its
+  control plane imports no torch: a worker pays for torch at its first task
+  that uses it.
+
+The runtime API (`init`, `remote`, `get`, ...) loads on first use, so
+`import ray_tpu_torch` stays cheap.
 """
+
+# Core runtime API, imported lazily as in the JAX package: pure-compute users
+# (models/ops/parallel) don't pay for it, and vice versa.
+_CORE_API = (
+    "init", "shutdown", "is_initialized", "remote", "get", "put", "wait",
+    "kill", "cancel", "method", "get_runtime_context", "nodes", "get_actor",
+    "available_resources", "cluster_resources", "ObjectRef", "actor", "free",
+    "put_device",
+)
+
+
+def __getattr__(name):
+    if name in _CORE_API:
+        from ray_tpu_torch.core import api as _api
+
+        return getattr(_api, name)
+    raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_CORE_API))

@@ -663,3 +663,88 @@ def test_tp_engine_across_cards(cuda):
     rec = chip_smoke.tp_engine_check(chip_smoke.gpu_line(),
                                      ["cuda:0", "cuda:1"])
     print(f"[tp engine across cards] {rec}")
+
+
+# ---------------------------------------------------------------- runtime
+@pytest.mark.cuda
+def test_runtime_detects_gpus_without_being_told(cuda):
+    # the head counts the cards (CUDA_VISIBLE_DEVICES, else NVML)
+    # without importing torch; a num_gpus=1 task sees the card
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.resources import detect_num_gpus
+
+    n = torch.cuda.device_count()
+    assert detect_num_gpus() == n
+    try:
+        rt.init(num_cpus=2)
+        assert rt.cluster_resources().get("GPU") == n
+
+        @rt.remote(num_gpus=1)
+        def where():
+            import torch as _torch
+
+            return _torch.cuda.is_available(), _torch.cuda.device_count()
+
+        assert rt.get(where.remote(), timeout=300) == (True, n)
+    finally:
+        rt.shutdown()
+
+
+@pytest.mark.cuda
+def test_runtime_nccl_actor_group_across_cards(cuda):
+    # two num_gpus=1 actors grouped by create_collective_group over NCCL:
+    # each takes its own card (cuda:{local rank}) before the group is made,
+    # and allreduce, broadcast and allgather of CUDA tensors give what
+    # numpy gives of the same inputs (sums of two terms: exact); both
+    # members destroy the group and the name is declared again with the
+    # ranks reversed, with the same results by rank
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util.collective import collective as col
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: NCCL refuses two ranks on one")
+    rng = np.random.default_rng(21)
+    xs = [rng.standard_normal((4, 1024)).astype(np.float32) for _ in range(2)]
+
+    class Member:
+        def run(self, x):
+            import torch as _torch
+
+            from ray_tpu_torch.util.collective import collective as c
+
+            c.get_group("nccl2")   # attaches: takes this member's card
+            dev = _torch.cuda.current_device()
+            t = _torch.from_numpy(x).to(_torch.device("cuda", dev))
+            return {"allreduce": c.allreduce(t.clone(), group_name="nccl2"),
+                    "broadcast": c.broadcast(t.clone(), src_rank=1,
+                                             group_name="nccl2"),
+                    "allgather": c.allgather(None, t, group_name="nccl2"),
+                    "device": dev}
+
+        def leave(self):
+            from ray_tpu_torch.util.collective import collective as c
+
+            c.destroy_collective_group("nccl2")
+            return c.is_group_initialized("nccl2")
+
+    try:
+        rt.init(num_cpus=2)
+        actors = [rt.remote(num_gpus=1)(Member).remote() for _ in xs]
+        col.create_collective_group(actors, 2, [0, 1], backend="nccl",
+                                    group_name="nccl2")
+        got = rt.get([a.run.remote(x) for a, x in zip(actors, xs)],
+                     timeout=300)
+        assert rt.get([a.leave.remote() for a in actors],
+                      timeout=120) == [False, False]
+        col.create_collective_group(actors, 2, [1, 0], backend="nccl",
+                                    group_name="nccl2")
+        again = rt.get([a.run.remote(x) for a, x in zip(actors, xs[::-1])],
+                       timeout=300)
+    finally:
+        rt.shutdown()
+    assert sorted(g["device"] for g in got) == [0, 1]
+    for g in got + again:
+        np.testing.assert_array_equal(g["allreduce"].numpy(), xs[0] + xs[1])
+        np.testing.assert_array_equal(g["broadcast"].numpy(), xs[1])
+        np.testing.assert_array_equal(
+            np.stack([p.numpy() for p in g["allgather"]]), np.stack(xs))
