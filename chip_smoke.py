@@ -118,7 +118,27 @@ Phases, each reported on its own line:
    latency, puts of the same bytes (a CPU tensor, a numpy array, the CUDA
    tensor) into untouched and into reused arena pages, a host memcpy into
    a fresh and a touched buffer, a worker's start and warm round trips of
-   an actor call and a no-op task.
+   an actor call and a no-op task;
+15. the runtime across nodes on the card (phase_multinode), under store
+   isolation: cluster_utils.Cluster with a head holding no GPU and two
+   node daemons of num_gpus=1 each on the one card (zones a and b), none
+   of the three mapping libcuda; phase 5's server in a detached
+   num_gpus=1 actor on a daemon's node (N1) with phase 14's driver-side
+   greedy tokens, a's first-token logits within TOL_LOGITS and 12/0/0
+   launches counted in its process; a task's 256 MiB bf16 CUDA tensor
+   made on the other node (N2) and got in the head's namespace through the
+   chunked data plane, bit-equal and out of band, timed as GB/s; the head
+   SIGKILLed and restarted with --restore while the actor lives: the
+   actor keeps its process (its daemon reports it and the head re-adopts
+   it) and its tokens, the epoch is bumped, GPU total 2 with none
+   available on N1, no ledger below zero, and a num_gpus=1 task pinned to
+   N1 from the moment the head is back does not run (no double grant);
+   N1 killed: the actor
+   restarts on N2 with the same tokens and launches, the time from the
+   kill to its first answer logged; a remote driver with no visible card
+   gets prompt a's tokens through the head's client proxy
+   (ray-tpu://) without mapping libcuda; the shutdown leaves no process
+   and no rtpt_* segment of the session.
 Phase 10 also runs the ring at a ragged chunk (Llama-3-8B widths,
 T=16000 on sp=4: chunks of 4000 padded to 4096, the padded keys masked by
 K1's and K2's kv_len) and holds each padded chunk pair against the plain
@@ -3046,6 +3066,8 @@ RUNTIME_OBJECT_BYTES = 256 << 20
 RUNTIME_NEW = 32
 RUNTIME_SPAWN_S = 600
 RUNTIME_TRIPS = 20
+# phase 14's driver-side server output and get time, for phase 15
+RUNTIME_REF: dict = {}
 
 
 def _no_tf32() -> None:
@@ -3327,6 +3349,8 @@ def phase_runtime(card: str) -> dict:
             d_tokens, d_logits = _rt_serve(server, prompts)
         finally:
             server.shutdown()
+        # phase 15 holds its actor against this process's server too
+        RUNTIME_REF.update(tokens=d_tokens, logits=d_logits)
         gap = float((a_logits - d_logits).abs().max())
         same = a_tokens == d_tokens
         log(f"[runtime] actor vs this process: greedy tokens of a and b "
@@ -3399,6 +3423,7 @@ def phase_runtime(card: str) -> dict:
         touch = _first_touch(values["numpy"])
         meta = client.local_metas[ref.id]
         ser = client.read_serialized(meta)
+        RUNTIME_REF["same_node_get_ms"] = get_ms
         bit_equal = (got.dtype == torch.bfloat16 and got.device.type == "cpu"
                      and torch.equal(got.view(torch.int16),
                                      want.cpu().view(torch.int16))
@@ -3455,6 +3480,303 @@ def _shutdown_runtime(rt, rt_api) -> None:
     rt.shutdown()
     for pid in pids:
         _wait_exit(pid, timeout=30.0)
+
+
+# -------------------------------------- phase 15: the runtime across nodes
+# Two node daemons on the one card stand for two GPU nodes (num_gpus=1
+# each, the reference's way of faking accelerators per node), under a
+# head with no GPU and with store isolation (each node its own store
+# namespace, so objects really cross nodes through the data plane). Phase
+# 5's server runs in a detached num_gpus=1 actor, outlives a head restart
+# and moves to the other node when its node is killed; a remote driver
+# reaches it through the head's client proxy. The actor counts its own
+# launches: prompt a's first-token logits through gpt2.forward take K1
+# once a layer.
+MULTI_ACTOR = "phase15-server"
+MULTI_HEAD_WAIT_S = 60
+MULTI_PROBE_S = 5.0
+
+
+class MultiNodeServer(RuntimeServer):
+    """Phase 5's server in a detached actor; it also says where it runs
+    and answers with tokens alone (a remote driver needs no torch)."""
+
+    def node(self) -> tuple:
+        import ray_tpu_torch
+
+        return os.getpid(), ray_tpu_torch.get_runtime_context().node_id.hex()
+
+    def tokens(self, prompts) -> tuple:
+        return ([self.server({"prompt_ids": p, "max_tokens": RUNTIME_NEW})
+                 ["choices"][0]["token_ids"] for p in prompts], os.getpid())
+
+
+def _rt_where() -> str:
+    import ray_tpu_torch
+
+    return ray_tpu_torch.get_runtime_context().node_id.hex()
+
+
+_REMOTE_DRIVER = r"""
+import json, os, sys
+sys.path.insert(0, sys.argv[3])
+import ray_tpu_torch as rt
+
+rt.init(address=sys.argv[1])
+h = rt.get_actor(sys.argv[2])
+tokens, pid = rt.get(h.tokens.remote([json.loads(sys.argv[4])]), timeout=600)
+with open("/proc/self/maps") as f:
+    libs = sorted({os.path.basename(l.split()[-1]) for l in f if "/" in l
+                   and ("cuda" in l.lower() or "nvidia" in l.lower())})
+print(json.dumps({"tokens": tokens[0], "pid": pid, "libs": libs,
+                  "torch": "torch" in sys.modules}))
+rt.shutdown()
+"""
+
+
+def _check_no_context(pids: dict) -> None:
+    """None of these control-plane processes maps the CUDA driver."""
+    for what, pid in pids.items():
+        libs = _driver_libs(pid)
+        if any(lib.startswith("libcuda.") for lib in libs):
+            raise AssertionError(f"the {what} (pid {pid}) maps {libs}")
+
+
+def _head_row(state) -> dict:
+    return next(r for r in state.list_scheduler_stats() if r.get("is_head"))
+
+
+def phase_multinode(card: str) -> dict:
+    """The runtime across nodes on the card (phase 15): bring-up, serving
+    on a daemon, a tensor across nodes, a head restart, a node death and a
+    remote driver. Returns the actor's launches, counted in its own
+    process, before and after its node's death."""
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core import api as rt_api
+    from ray_tpu_torch.util import state
+    import ray_tpu_torch as rt
+
+    cfg = gpt2.GPT2Config.preset(PRESET)
+    want = (cfg.n_layer, 0, 0)
+    prompts = _rt_prompts()
+    ref_tokens, ref_logits = RUNTIME_REF["tokens"], RUNTIME_REF["logits"]
+    os.environ["RAY_TPU_STORE_ISOLATION"] = "1"
+    c = None
+    try:
+        # 1. bring-up: a head with no GPU, two one-GPU daemons
+        t0 = time.perf_counter()
+        c = Cluster(num_cpus=0, enable_snapshots=True)
+        nodes = {c.add_node(num_cpus=2, num_gpus=1, labels={"zone": z}): z
+                 for z in ("a", "b")}
+        c.connect()
+        c.wait_for_nodes(3)
+        res = rt.cluster_resources()
+        log(f"[multinode] head + daemons {sorted(v for v in nodes.values())}"
+            f" up in {time.perf_counter() - t0:.2f} s; cluster {res}; "
+            f"store isolation on")
+        if res.get("GPU") != 2:
+            raise AssertionError(f"cluster GPUs {res.get('GPU')} != 2")
+        control = {"head": c._head.pid,
+                   **{f"daemon {z}": p.pid for z, p in
+                      zip(("a", "b"), c._nodes)}}
+
+        # 2. serving on a daemon: the actor's node is N1, the other N2
+        t0 = time.perf_counter()
+        actor = rt.remote(MultiNodeServer).options(
+            num_gpus=1, max_restarts=1, lifetime="detached",
+            name=MULTI_ACTOR).remote()
+        tokens, logits, launches, a_pid = rt.get(
+            actor.serve.remote(prompts), timeout=RUNTIME_SPAWN_S)
+        serve_s = time.perf_counter() - t0
+        _, n1 = rt.get(actor.node.remote(), timeout=60)
+        n2 = next(n for n in nodes if n != n1)
+        gap = float((logits - ref_logits).abs().max())
+        log(f"[multinode] actor pid {a_pid} on node {nodes.get(n1, n1)} "
+            f"(a daemon's: {n1 in nodes}): server built and prompts a, b "
+            f"answered in {serve_s:.2f} s; greedy tokens equal to phase "
+            f"14's driver-side server: {tokens == ref_tokens}; first-token "
+            f"logits max |d| {gap:.4g} (tol {TOL_LOGITS}); launches "
+            f"K1/K2/K3 {launches} (want {want})")
+        if n1 not in nodes:
+            raise AssertionError("the actor is not on a daemon's node")
+        if tokens != ref_tokens or gap > TOL_LOGITS:
+            raise AssertionError("the actor's output differs from the "
+                                 "driver's server")
+        _runtime_launch_check("multinode actor", launches, want)
+        _check_no_context(control)
+        paths = {"multinode actor serve": tuple(launches)}
+
+        # 3. a tensor across nodes: made on N2, got in the head's
+        # namespace through the chunked data plane
+        nbytes = RUNTIME_OBJECT_BYTES
+        ref = rt.remote(_rt_object).options(
+            num_gpus=1, label_selector={"zone": nodes[n2]}).remote(nbytes)
+        rt.wait([ref], timeout=RUNTIME_SPAWN_S)
+        client = rt_api._global_client()
+        t0 = time.perf_counter()
+        got = rt.get(ref, timeout=600)
+        pull_s = time.perf_counter() - t0
+        local = client._pulled.get(ref.id) or client._daemon_pulled.get(
+            ref.id)
+        ser = client.store.get_serialized(local) if local else None
+        want_t = _rt_object(nbytes).cpu()
+        bit_equal = (got.dtype == torch.bfloat16 and got.device.type == "cpu"
+                     and torch.equal(got.view(torch.int16),
+                                     want_t.view(torch.int16)))
+        same_ms = RUNTIME_REF.get("same_node_get_ms")
+        log(f"[multinode] a task's {nbytes >> 20} MiB bf16 CUDA tensor on "
+            f"node {nodes[n2]} got in the head's namespace as a "
+            f"{got.device.type} {got.dtype} tensor, bit-equal {bit_equal}; "
+            f"pulled across nodes: {local is not None}; pickle meta "
+            f"{len(ser.meta) if ser else None} B, out-of-band buffers "
+            f"{[b.nbytes for b in ser.buffers] if ser else None}; cross-node "
+            f"get {1e3 * pull_s:.1f} ms = {nbytes / pull_s / 1e9:.3f} GB/s; "
+            f"same-node get of the same bytes (phase 14, a view of shm, no "
+            f"copy) {same_ms:.3f} ms")
+        if not bit_equal or local is None:
+            raise AssertionError("the tensor did not cross nodes bit-equal")
+        if len(ser.meta) >= 1024 or [b.nbytes for b in ser.buffers] != [
+                nbytes]:
+            raise AssertionError("the tensor's bytes did not go out of band")
+        del got, want_t, ser
+        rt.free([ref])
+
+        # 4. head restart while the actor lives
+        epoch0 = _head_row(state)["epoch"]
+        time.sleep(2.5)   # a snapshot cycle (every 2 s)
+        t0 = time.perf_counter()
+        c.kill_head()
+        c.restart_head(restore=True)
+        up_s = time.perf_counter() - t0
+        # a second num_gpus=1 task pinned to N1 the moment the head is
+        # back, racing the actor's re-adoption: it must not run
+        probe = rt.remote(_rt_where).options(
+            num_gpus=1, label_selector={"zone": nodes[n1]}).remote()
+        again, pid_r = rt.get(actor.tokens.remote(prompts[:1]),
+                              timeout=RUNTIME_SPAWN_S)
+        answer_s = time.perf_counter() - t0
+        lows = []   # every node's free CPU and GPU, sampled until reconciled
+
+        def reconciled():
+            try:
+                lows.extend(min(n["available"].get(r, 0)
+                                for r in ("CPU", "GPU"))
+                            for n in state.list_nodes())
+                rows = [r for r in state.list_scheduler_stats()
+                        if not r.get("is_head")]
+            except Exception:
+                return False  # this driver's own reconnect is under way
+            return len(rows) == 2 and all(r["reconciled"] for r in rows)
+
+        deadline = time.perf_counter() + MULTI_HEAD_WAIT_S
+        while not reconciled():
+            if time.perf_counter() > deadline:
+                raise AssertionError("the daemons never reconciled")
+            time.sleep(0.1)
+        back_s = time.perf_counter() - t0
+        epoch1 = _head_row(state)["epoch"]
+        aid = actor._actor_id.hex()
+        hosts = sorted(w["pid"] for w in rt_api._global_client().head_request(
+            "list_state", kind="workers") if w.get("actor") == aid)
+        avail = {n["node_id"]: n["available"].get("GPU", 0)
+                 for n in state.list_nodes()}
+        total = rt.cluster_resources().get("GPU")
+        ready, _ = rt.wait([probe], timeout=MULTI_PROBE_S)
+        rt.cancel(probe, force=True)
+        kept = pid_r == a_pid and hosts == [a_pid]
+        log(f"[multinode] head killed and restarted with --restore: serving "
+            f"again in {up_s:.2f} s, the actor's first answer after "
+            f"{answer_s:.2f} s, both daemons reconciled after {back_s:.2f} "
+            f"s; epoch {epoch0} -> {epoch1}; the actor kept its process "
+            f"(pid {pid_r}, the head's record {hosts}): {kept}, "
+            f"re-created: {not kept}; prompt a's tokens equal: "
+            f"{again[0] == ref_tokens[0]}; GPU total {total}, available on "
+            f"N1 {avail.get(n1)}, on N2 {avail.get(n2)}, the least free "
+            f"CPU or GPU on a node while reconciling {min(lows)}; a "
+            f"num_gpus=1 task pinned to N1 from the head's return on ran "
+            f"by {MULTI_PROBE_S:g} s after the reconcile: {bool(ready)}")
+        if again[0] != ref_tokens[0]:
+            raise AssertionError("the actor's tokens changed across the "
+                                 "head restart")
+        if not kept:
+            raise AssertionError("the restarted head did not re-adopt the "
+                                 "actor's surviving process")
+        if epoch1 <= epoch0:
+            raise AssertionError("the head's epoch was not bumped")
+        if total != 2 or avail.get(n1) != 0 or min(lows) < 0:
+            raise AssertionError("the GPU ledger is wrong after the restart")
+        if ready:
+            raise AssertionError("N1's GPU was granted twice")
+        control["head"] = c._head.pid
+        _check_no_context(control)
+
+        # 5. node death: N1's daemon and its processes killed
+        t0 = time.perf_counter()
+        c.kill_node(n1)
+        deadline = t0 + RUNTIME_SPAWN_S
+        while True:
+            try:
+                tokens2, _, launches2, pid2 = rt.get(
+                    actor.serve.remote(prompts), timeout=RUNTIME_SPAWN_S)
+                break
+            except Exception as e:   # the restart is under way
+                if time.perf_counter() > deadline:
+                    raise
+                log(f"[multinode] waiting for the restarted actor: "
+                    f"{type(e).__name__}")
+                time.sleep(0.5)
+        moved_s = time.perf_counter() - t0
+        _, n_after = rt.get(actor.node.remote(), timeout=60)
+        log(f"[multinode] N1 killed: the actor restarted on node "
+            f"{nodes.get(n_after, n_after)} (N2: {n_after == n2}, pid "
+            f"{pid2}); from the kill to its first answer {moved_s:.2f} s; "
+            f"tokens of a and b equal: {tokens2 == ref_tokens}; launches "
+            f"{launches2} (want {want})")
+        if n_after != n2 or tokens2 != ref_tokens:
+            raise AssertionError("the actor did not move to N2 intact")
+        _runtime_launch_check("restarted actor", launches2, want)
+        paths["multinode restarted actor serve"] = tuple(launches2)
+
+        # 6. a remote driver through the client proxy, with no card
+        port = rt_api._global_client().head_request(
+            "cluster_info")["client_proxy_port"]
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", _REMOTE_DRIVER,
+             f"ray-tpu://127.0.0.1:{port}", MULTI_ACTOR,
+             os.path.dirname(os.path.abspath(__file__)),
+             json.dumps(prompts[0])],
+            capture_output=True, text=True, timeout=600, env=env)
+        remote_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"the remote driver failed: "
+                                 f"{out.stderr[-2000:]}")
+        rem = json.loads(out.stdout.strip().splitlines()[-1])
+        log(f"[multinode] remote driver over ray-tpu://127.0.0.1:{port} "
+            f"(CUDA_VISIBLE_DEVICES=''): prompt a's tokens equal "
+            f"{rem['tokens'] == ref_tokens[0]}, from actor pid {rem['pid']}; "
+            f"torch imported {rem['torch']}; driver libraries mapped "
+            f"{rem['libs']}; {remote_s:.2f} s")
+        if rem["tokens"] != ref_tokens[0]:
+            raise AssertionError("the remote driver's tokens differ")
+        if any(lib.startswith("libcuda.") for lib in rem["libs"]):
+            raise AssertionError("the remote driver holds a CUDA context")
+        rt.kill(actor)
+        return paths
+    finally:
+        # 7. teardown: nothing of the session stays
+        try:
+            rt.shutdown()
+        finally:
+            os.environ.pop("RAY_TPU_STORE_ISOLATION", None)
+            if c is not None:
+                c.shutdown()
+                left, segs = c.processes(), c.segments()
+                log(f"[multinode] shutdown: processes left {left}, "
+                    f"segments left {segs}")
+                if left or segs:
+                    raise AssertionError("the cluster leaked")
 
 
 def main() -> int:
@@ -3550,6 +3872,13 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(phase_runtime(card))
     log(f"[runtime] phase {time.perf_counter() - t0:.1f} s; script so far "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # the runtime across nodes: the actor's launches, counted in its own
+    # process from 0, on N1 and after its move to N2
+    t0 = time.perf_counter()
+    paths.update(phase_multinode(card))
+    log(f"[multinode] phase {time.perf_counter() - t0:.1f} s; script so far "
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"[paths] K1/K2/K3 launches by path: {paths}")
 

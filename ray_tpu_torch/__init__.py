@@ -39,7 +39,14 @@ Ported so far:
   `util.metrics` and `util.tracing`; actors meet in collective groups
   through the head's KV (`util.collective.create_collective_group`). Its
   control plane imports no torch: a worker pays for torch at its first task
-  that uses it.
+  that uses it;
+- the core runtime across nodes: node daemons advertising `num_gpus`
+  (`core.node_main`), `cluster_utils.Cluster` with head fault tolerance,
+  peer spillback and objects pulled between nodes, remote drivers over
+  `ray-tpu://` through the head's client proxy (`client_proxy`), the state
+  API (`util.state`), `timeline`, `util.actor_pool`, `util.queue`,
+  `util.multiprocessing`, `util.dask`, `util.joblib`,
+  `experimental.tqdm_ray`, usage stats and the CLI's `start`/`stop`.
 
 The runtime API (`init`, `remote`, `get`, ...) loads on first use, so
 `import ray_tpu_torch` stays cheap.
@@ -60,6 +67,10 @@ def __getattr__(name):
         from ray_tpu_torch.core import api as _api
 
         return getattr(_api, name)
+    if name == "timeline":
+        from ray_tpu_torch.util.timeline import timeline
+
+        return timeline
     raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")
 
 

@@ -3,10 +3,10 @@
 Counterpart of `ray_tpu/core/api.py`, with GPUs (`num_gpus`, resource
 "GPU") where the JAX package counts TPU chips (`num_tpu_chips`, "TPU").
 The head and its workers run this package's `core.head_main` and
-`core.worker_main`. What waits for later parts of the port raises
-NotImplementedError naming its ROADMAP item: device objects (`put_device`,
-item 16), DAGs (`.bind`, item 17) and remote drivers over `ray-tpu://`
-(item 15b).
+`core.worker_main`; `init("ray-tpu://host:port")` drives a cluster
+through its head's client proxy. What waits for later parts of the port
+raises NotImplementedError naming its ROADMAP item: device objects
+(`put_device`, item 16) and DAGs (`.bind`, item 17).
 """
 
 from __future__ import annotations
@@ -77,9 +77,18 @@ def init(address: Optional[str] = None, *, num_cpus: Optional[float] = None,
         if address is None and (cfg_addr := _config.get("address")):
             address = cfg_addr
         if address is not None and address.startswith("ray-tpu://"):
-            raise NotImplementedError(
-                "remote drivers over ray-tpu:// need the port's client "
-                "proxy (ROADMAP item 15b)")
+            # remote-driver mode (reference Ray Client, `ray://host:port`):
+            # everything rides one multiplexed connection to the head-side
+            # proxy — no reachability to workers/data servers/shm needed
+            from ray_tpu_torch.client_proxy.client import (
+                ProxyClient, parse_proxy_address)
+
+            host, port = parse_proxy_address(address)
+            client = ProxyClient(host, port)
+            client.start()
+            _client = client
+            atexit.register(shutdown)
+            return client.node_info
         if address is None:
             session = f"s{uuid.uuid4().hex[:12]}"
             cmd = [sys.executable, "-m", "ray_tpu_torch.core.head_main",

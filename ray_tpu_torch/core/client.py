@@ -642,8 +642,14 @@ class CoreClient:
         window retries on the re-established connection instead of
         surfacing into callers (a worker fetching a function blob
         mid-outage would otherwise poison its task's result with an
-        infrastructure error the retry machinery never sees)."""
+        infrastructure error the retry machinery never sees).
+
+        A request that carries its own `timeout` gets its answer within
+        that time and 5 s more, or raises TimeoutError: a paused head
+        (SIGSTOP keeps its socket open) must not hold the caller past
+        the timeout it asked for."""
         deadline = time.monotonic() + max(self._reconnect_s, 0.0) + 5.0
+        within = kwargs.get("timeout")
         while True:
             self._wait_connected()
             cfut: _cf.Future = _cf.Future()
@@ -671,7 +677,11 @@ class CoreClient:
 
             self._loop_call_soon(_send)
             try:
-                return cfut.result()
+                return cfut.result(
+                    timeout=None if within is None else within + 5.0)
+            except _cf.TimeoutError:
+                cfut.cancel()  # a late answer is dropped
+                raise
             except protocol.ConnectionLost:
                 if (self._closing or self._reconnect_s <= 0
                         or time.monotonic() >= deadline
@@ -1208,9 +1218,12 @@ class CoreClient:
                         # the head only sees genuinely cold misses
                         meta = self.object_dir.lookup_meta(ref.id)
                         if meta is None:
-                            meta = self.head_request(
-                                "get_meta", object_id=ref.id.binary(),
-                                timeout=remaining)
+                            try:
+                                meta = self.head_request(
+                                    "get_meta", object_id=ref.id.binary(),
+                                    timeout=remaining)
+                            except _cf.TimeoutError:
+                                meta = None  # the head did not answer
                     if meta is None:
                         raise GetTimeoutError(f"get timed out on {ref}")
                     self.local_metas[ref.id] = meta

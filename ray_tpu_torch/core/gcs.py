@@ -26,6 +26,7 @@ import subprocess
 import sys
 import time
 from collections import OrderedDict, deque
+from types import SimpleNamespace
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 from ray_tpu_torch.core import config as _config
@@ -33,6 +34,16 @@ from ray_tpu_torch.core import object_directory as objdir
 from ray_tpu_torch.core import protocol
 from ray_tpu_torch.core.ids import ActorID, NodeID, ObjectID, PlacementGroupID, TaskID, WorkerID
 from ray_tpu_torch.core.store import ObjectMeta, SharedMemoryStore
+
+
+# After a head restart, how long a restored detached actor waits for its
+# node daemon to report the process that still hosts it (daemons retry the
+# head every <= 2 s), and how long a reported actor's resources stay held
+# for that process to re-register, before the actor is re-created
+# elsewhere. A module constant, not a config flag: the flag table stays
+# the JAX package's.
+ACTOR_READOPT_GRACE_S = 5.0
+ACTOR_HOLD_S = 10.0
 
 
 class NodeInfo:
@@ -78,6 +89,9 @@ class NodeInfo:
         #  "digest_ts": monotonic ts of the last digest refresh}
         self.view_sub: Optional[dict] = None
         self.pending_pool: Dict[WorkerID, dict] = {}  # claimed at register
+        # actor processes the daemon's reconcile reported that have not
+        # re-registered yet: their resources, already debited (the hold)
+        self.pending_actors: Dict[WorkerID, SimpleNamespace] = {}
         self.unadopted: Set["WorkerInfo"] = set()     # parked reconnectors
         self.alive = True
         self.idle: List["WorkerInfo"] = []
@@ -152,6 +166,10 @@ class ActorInfo:
         self.restarts_left = spec["options"].get("max_restarts", 0)
         self.ready_event = asyncio.Event()
         self.death_cause: Optional[str] = None
+        # a detached actor restored from a snapshot is not re-created
+        # before this monotonic time: its process may have survived the
+        # head, reported by its daemon and re-adopted
+        self.readopt_until = 0.0
 
 
 class TaskRecord:
@@ -514,7 +532,14 @@ class Head:
                 # bypass the double-grant fence)
                 daemon_pending = (node is self.head_node
                                   and nid != self.node_id)
-                if item is not None:
+                hold = (node.pending_actors.pop(w.worker_id, None)
+                        if reconnect else None)
+                if hold is not None:
+                    # an actor's process that outlived the head, which its
+                    # daemon's reconciliation report named: re-adopt it
+                    # onto the resources held for it since that report
+                    self._adopt_actor_worker(node, w, hold)
+                elif item is not None:
                     # its daemon's reconciliation report already claimed
                     # this worker for a lease pool: restore the carve-out
                     # instead of exposing it to head dispatch
@@ -537,7 +562,12 @@ class Head:
                     node.idle.append(w)
                     self._grant_lease_waiters(node)
                     self._kick()
-            return {"node_id": node.node_id.binary(), "session": self.session,
+            # a worker whose daemon has not re-registered yet is homed on
+            # the head's node for now, but it runs on its own node: tell it
+            # that one (its runtime context reports where it really runs)
+            home = (nid if not is_driver and node is self.head_node
+                    and nid != self.node_id else node.node_id)
+            return {"node_id": home.binary(), "session": self.session,
                     "epoch": self.cluster_epoch,
                     # lets clients recognize the restart-recovery window
                     # (a young head may still be re-learning state from
@@ -799,15 +829,17 @@ class Head:
             self._view_changed()
             return True
 
-        async def pool_reconcile(inventory, epoch=None, objects=None):
+        async def pool_reconcile(inventory, epoch=None, objects=None,
+                                 actors=None):
             """Reconciliation handshake: on every (re)connect the daemon
             reports its full pool inventory (idle entries + live local
-            leases). The daemon is the source of truth for carved
-            capacity — the head rebuilds its ledger from this report
-            rather than from a possibly-stale snapshot: unclaimed
-            head-side carve-outs are released (leak fence), claimed
-            workers are (re-)pooled (double-grant fence), and workers
-            that have not re-registered yet are parked in pending_pool
+            leases) and its live actor processes. The daemon is the source
+            of truth for carved capacity — the head rebuilds its ledger
+            from this report rather than from a possibly-stale snapshot:
+            unclaimed head-side carve-outs are released (leak fence),
+            claimed workers are (re-)pooled and actor processes' resources
+            held (double-grant fence), and workers that have not
+            re-registered yet are parked in pending_pool / pending_actors
             for adoption at registration."""
             node = conn_state.get("node")
             if node is None:
@@ -836,6 +868,8 @@ class Head:
                     continue
                 self._adopt_pooled(node, w, item)
                 adopted += 1
+            for item in actors or ():
+                self._hold_actor_worker(node, item)
             adopted_objects = 0
             stale_objects = []
             if objects:
@@ -1540,6 +1574,7 @@ class Head:
             node = self._select_node(resources, options.get("label_selector"),
                                      options.get("scheduling_strategy",
                                                  "hybrid"))
+            fits_now = node is not None
             if node is None:
                 # no node has the resources FREE right now — but a node
                 # whose total capacity covers the ask will free up; wait
@@ -1555,9 +1590,14 @@ class Head:
                     return None
                 node = min(feasible, key=lambda n: n.utilization())
             venv_key = (options.get("runtime_env") or {}).get("pip_key")
-            lw = self._idle_worker_on(node, venv_key)
+            # an idle worker on a node whose ledger cannot cover the ask
+            # is no grant: taking it would debit the ledger below zero (a
+            # second num_gpus=1 lease on a node whose GPU an actor holds).
+            # Such a request waits; _grant_lease_waiters checks the ledger
+            lw = self._idle_worker_on(node, venv_key) if fits_now else None
             if lw is None:
-                self._request_worker(node, pip_key=venv_key)  # warm the pool
+                if fits_now:
+                    self._request_worker(node, pip_key=venv_key)  # warm the pool
                 fut = asyncio.get_running_loop().create_future()
                 ent = {"resources": resources,
                        "selector": options.get("label_selector"),
@@ -1739,6 +1779,7 @@ class Head:
                     info.worker = None
                     w.actor_id = None
                     self._release(w)
+                    self._tell_daemon_actor(w)
                     node = self.nodes.get(w.node_id)
                     if node is not None and w not in node.idle:
                         node.idle.append(w)
@@ -2259,9 +2300,11 @@ class Head:
                 self._kick_again = False
                 self._retry_pending_pgs()
                 self.queue.scan(self._try_dispatch)
+                now = time.monotonic()
                 for info in self.actors.values():
                     if (info.state in ("PENDING", "RESTARTING")
-                            and info.worker is None):
+                            and info.worker is None
+                            and info.readopt_until <= now):
                         self._schedule_actor(info)
                 if not self._kick_again:
                     break
@@ -2304,6 +2347,7 @@ class Head:
         w.actor_id = info.actor_id
         info.worker = w
         w.conn.push("start_actor", spec=info.spec)
+        self._tell_daemon_actor(w)
 
     # -------------------------------------------------------------- workers
     def _request_worker(self, node: NodeInfo, pip=None,
@@ -3465,11 +3509,18 @@ class Head:
                                         view.get("name", ""))
                 self.pgs[pgid] = pg
                 self._try_reserve_pg(pg)
+        grace = ACTOR_READOPT_GRACE_S
         for aid_b, spec in snap["detached_actors"].items():
             aid = ActorID(aid_b)
             info = ActorInfo(aid, spec)
+            # not re-created at once: the daemons report the old head's
+            # actor processes within a few seconds and they are re-adopted
+            # (keeping their state, their card and the ledger exact); only
+            # an actor no daemon reports is re-created after `grace`
+            info.readopt_until = time.monotonic() + grace
             self.actors[aid] = info
-            self._schedule_actor(info)
+        if snap["detached_actors"]:
+            asyncio.get_running_loop().call_later(grace + 0.05, self._kick)
         for ns_name, aid_b in snap["named_actors"].items():
             aid = ActorID(aid_b)
             if aid in self.actors:
@@ -3937,6 +3988,117 @@ class Head:
         else:
             self._pool_seq = max(self._pool_seq, seq)
         w.pool_grant_seq = seq
+
+    def _tell_daemon_actor(self, w: WorkerInfo) -> None:
+        """Tell `w`'s node daemon which actor `w` now hosts (or that it
+        hosts none) and what it holds: after a head restart the daemon's
+        reconciliation report names the process, and the new head holds
+        its resources before anything else is granted on the node."""
+        node = self.nodes.get(w.node_id)
+        if node is None or node.conn is None or node.conn.closed:
+            return
+        try:
+            node.conn.push(
+                "actor_worker", wid=w.worker_id.binary(), pid=w.pid,
+                actor_id=w.actor_id.binary() if w.actor_id else None,
+                resources=dict(w.acquired),
+                pg=w.acquired_pg.binary() if w.acquired_pg else None,
+                bundle=w.acquired_bundle)
+        except Exception:
+            pass
+
+    def _hold_actor_worker(self, node: NodeInfo, item: dict) -> None:
+        """A daemon's reconciliation report names an actor process that
+        outlived the head: debit what it held on `node` now, before any
+        grant there, and re-adopt the process when it re-registers. An
+        actor this head re-created or removed meanwhile, or a restored one
+        whose resources are no longer free here (its placement group
+        bundle moved), ends the process, so one actor never runs twice.
+        An actor this head does not know (not detached, so not in the
+        snapshot) keeps running, out of the idle pool."""
+        wid, aid = WorkerID(item["wid"]), ActorID(item["actor_id"])
+        w = self.workers.get(wid)
+        if w is not None and w.actor_id is not None:
+            return  # already hosting it under this head (a re-reconcile)
+        info = self.actors.get(aid)
+        resources = item.get("resources") or {}
+        pg = bundle = None
+        if item.get("pg"):
+            pg = self.pgs.get(PlacementGroupID(item["pg"]))
+        if pg is not None:
+            idx = item.get("bundle")
+            if (pg.state == "CREATED" and idx is not None
+                    and pg.bundles[idx].node_id == node.node_id):
+                bundle = pg.bundles[idx]
+            fits = bundle is not None and bundle.fits(resources)
+        else:
+            fits = node.fits(resources)
+        if info is not None and (info.worker is not None
+                                 or info.state == "DEAD" or not fits):
+            if w is not None:
+                self._terminate_worker(w)
+            elif node.conn is not None and not node.conn.closed:
+                node.conn.push("kill_worker", pid=item["pid"])
+            return
+        hold = SimpleNamespace(node_id=node.node_id, actor_id=aid,
+                               acquired={}, acquired_pg=None,
+                               acquired_bundle=None)
+        if fits:
+            self._acquire(hold, resources, pg, bundle)
+        if info is not None:
+            info.readopt_until = time.monotonic() + ACTOR_HOLD_S
+        if w is not None:
+            self._adopt_actor_worker(node, w, hold)
+            return
+        node.pending_actors[wid] = hold
+        asyncio.get_running_loop().call_later(
+            ACTOR_HOLD_S, self._drop_actor_hold, node, wid)
+
+    def _drop_actor_hold(self, node: NodeInfo, wid: WorkerID) -> None:
+        """The reported actor process never re-registered: give its
+        resources back, and let a restored actor be re-created."""
+        hold = node.pending_actors.pop(wid, None)
+        if hold is None:
+            return
+        self._release(hold)
+        info = self.actors.get(hold.actor_id)
+        if info is not None and info.worker is None:
+            info.readopt_until = 0.0
+        self._kick()
+
+    def _adopt_actor_worker(self, node: NodeInfo, w: WorkerInfo,
+                            hold: SimpleNamespace) -> None:
+        """Re-adopt an actor onto the process that still hosts it (it
+        survived a head restart): home the worker on `node`, move the
+        resources held for it onto it, and publish its address."""
+        old = self.nodes.get(w.node_id)
+        if old is not None and old is not node:
+            old.workers.discard(w.worker_id)
+            old.unadopted.discard(w)
+            if w in old.idle:
+                old.idle.remove(w)
+            w.node_id = node.node_id
+            node.workers.add(w.worker_id)
+        node.unadopted.discard(w)
+        if w in node.idle:
+            node.idle.remove(w)
+        w.acquired = hold.acquired
+        w.acquired_pg, w.acquired_bundle = hold.acquired_pg, hold.acquired_bundle
+        w.actor_id = hold.actor_id
+        info = self.actors.get(hold.actor_id)
+        if info is not None:
+            if info.state == "DEAD":
+                # removed while held: its disconnect gives the hold back
+                self._terminate_worker(w)
+                return
+            info.worker = w
+            info.readopt_until = 0.0
+            self.notify_actor_ready(info, (w.host or "127.0.0.1", w.port))
+        self.lease_events.append({"ts": time.time(), "kind": "actor_readopt",
+                                  "actor_id": hold.actor_id.hex(),
+                                  "node_id": node.node_id.hex(),
+                                  "pid": w.pid, "restored": info is not None})
+        self._view_changed()
 
     def _promote_unadopted(self, node: NodeInfo, w: WorkerInfo) -> None:
         """A parked reconnecting worker the daemon's reconcile did not

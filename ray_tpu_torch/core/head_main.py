@@ -3,11 +3,12 @@
 Prints `RAY_TPU_HEAD_PORT=<port>` on stdout once serving, then runs until
 killed — the counterpart of `gcs_server` + head-node raylet bring-up
 (`python/ray/_private/node.py:1340 start_head_processes`). On SIGTERM it
-stops, killing the workers it started.
+stops, killing the workers and client-proxy processes it started.
 
-Counterpart of `ray_tpu/core/head_main.py` without its dashboard and client
-proxy (ROADMAP items 22 and 15b) and its usage-stats heartbeat: the head
-says once on stderr that they wait, and starts neither. It imports no
+Counterpart of `ray_tpu/core/head_main.py` without its dashboard (ROADMAP
+item 22): the head says once on stderr that it waits, and does not start
+it. It starts the client proxy for `ray-tpu://` drivers unless
+`--no-client-proxy`, and the opt-in usage-stats heartbeat. It imports no
 torch and opens no CUDA context; `--num-gpus` overrides GPU detection.
 """
 
@@ -67,18 +68,36 @@ async def amain(args) -> None:
         from ray_tpu_torch.core.memory_monitor import MemoryMonitor
 
         asyncio.ensure_future(MemoryMonitor(head).run())
+    from ray_tpu_torch.util.usage_stats import start_usage_stats_heartbeat
+
+    start_usage_stats_heartbeat(args.session)  # no-op unless opted in
     # the head-port line must come first: init() parses it from stdout
     print(f"RAY_TPU_HEAD_PORT={port}", flush=True)
     if args.restore:
         print(f"RAY_TPU_RESTORED={int(restored)}", flush=True)
     ports = {"port": port}
-    waiting = [what for what, off in (
-        ("the dashboard (ROADMAP item 22)", args.no_dashboard),
-        ("the client proxy (ROADMAP item 15b)", args.no_client_proxy))
-        if not off]
-    if waiting:
-        print(f"[ray_tpu_torch] head: {' and '.join(waiting)} not ported "
-              "yet; not started", file=sys.stderr, flush=True)
+    if not args.no_dashboard:
+        print("[ray_tpu_torch] head: the dashboard (ROADMAP item 22) is not "
+              "ported yet; not started", file=sys.stderr, flush=True)
+    cps = None
+    if not args.no_client_proxy:
+        try:
+            from ray_tpu_torch.client_proxy.server import ClientProxyServer
+
+            # same bind policy as the head/data servers: localhost unless
+            # the operator opts into external exposure via RAY_TPU_BIND_HOST
+            # (any connecting client gets a full driver — RCE surface)
+            cps = ClientProxyServer("127.0.0.1", port)
+            cp_port = await cps.start(
+                host=_config.get("bind_host"),
+                port=args.client_proxy_port)
+            head.client_proxy_port = cp_port
+            print(f"RAY_TPU_CLIENT_PROXY_PORT={cp_port}", flush=True)
+            ports["client_proxy_port"] = cp_port
+        except Exception as e:  # remote-driver ingress is best-effort
+            cps = None
+            print(f"RAY_TPU_CLIENT_PROXY_ERROR={e!r}", file=sys.stderr,
+                  flush=True)
     if args.port_file:
         # atomic write so pollers never read a partial file; lets the CLI
         # spawn the head fully detached (stdout→devnull, no inherited pipe)
@@ -97,6 +116,9 @@ async def amain(args) -> None:
     try:
         await stopping.wait()
     finally:
+        if cps is not None:
+            # the per-client driver processes go with the head
+            await cps.stop()
         await head.stop()
 
 

@@ -34,8 +34,11 @@ class PlacementGroup:
         if self._created_state == "CREATED":
             self._created_state = None
             return True
-        reply = _global_client().head_request("wait_pg", pg_id=self.id.binary(),
-                                              timeout=timeout)
+        try:
+            reply = _global_client().head_request(
+                "wait_pg", pg_id=self.id.binary(), timeout=timeout)
+        except TimeoutError:
+            return False  # the head did not answer in time
         return reply["state"] == "CREATED"
 
     def __reduce__(self):

@@ -154,8 +154,6 @@ class SharedMemoryStore:
         self.namespace = (namespace if namespace is not None
                           else _config.get("store_namespace"))
         self.isolated = _config.get("store_isolation")
-        tag = f"{self.namespace}_" if self.namespace else ""
-        self._seg_prefix = f"{SHM_PREFIX}{tag}{session[:8]}_"
         # RAY_TPU_SPILL_DIR may be an fsspec URI (s3://..., memory://) —
         # remote spill storage, reference external_storage.py:398
         # ExternalStorageSmartOpenImpl
@@ -190,6 +188,14 @@ class SharedMemoryStore:
                     self._arena_name(), capacity_bytes)
             except Exception:
                 self._arena = False
+
+    @property
+    def _seg_prefix(self) -> str:
+        # derived at each use: a driver that joins a cluster learns its
+        # session after its store is made, and the segments it creates
+        # must carry it, or the session's cleanup glob misses them
+        tag = f"{self.namespace}_" if self.namespace else ""
+        return f"{SHM_PREFIX}{tag}{self.session[:8]}_"
 
     def _arena_name(self) -> str:
         tag = f"{self.namespace}_" if self.namespace else ""

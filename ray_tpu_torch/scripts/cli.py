@@ -1,27 +1,66 @@
-"""`python -m ray_tpu_torch.scripts.cli`: introspection of a running cluster.
+"""`python -m ray_tpu_torch.scripts.cli`: node bring-up and introspection.
 
-Counterpart of `ray_tpu/scripts/cli.py` for the subcommands that read a
-single-node cluster: `status`, `list`, `config` and `logs`. Each attaches
-via --address / RAY_TPU_ADDRESS. Node bring-up (`start`, `stop`, `up`,
-`down`), jobs, timelines and `serve` wait for the multi-node runtime and
-the libraries (ROADMAP items 15b, 18 and 22).
+Counterpart of `ray_tpu/scripts/cli.py` for `start` (a head with
+`--head`, a node daemon with `--address`; `--num-gpus` where the JAX
+package has `--num-tpu-chips`), `stop`, `status`, `list`, `summary`,
+`timeline`, `stack`, `config` and `logs`. Every subcommand but `start`
+and `stop` attaches via --address / RAY_TPU_ADDRESS, or the address the
+last `start --head` on this machine saved. `job`, `top` and `serve` wait
+for the port's job submission, dashboard and serve plane (ROADMAP items
+22 and 18); `up`, `down`, `exec`, `attach` and `rsync` for its cluster
+launcher (item 21).
+
+`stop` stops the processes that `start` on this machine recorded under
+the state directory (heads and daemons, through SIGTERM, so each kills its
+workers and unlinks its shared memory), then the session's leftovers. It
+does not kill every port process on the host, as the reference's
+`pkill` does: other clusters on the machine stay up.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
+import os
 import signal
+import subprocess
 import sys
+import tempfile
+import time
 
 from ray_tpu_torch.core import config as _cfg
+from ray_tpu_torch.utils.platform import STATE_DIR
+
+ADDR_FILE = os.path.join(STATE_DIR, "last_address")
+# one JSON line a process `start` launched: {"pid", "cmd", "session"}
+PROCS_FILE = os.path.join(STATE_DIR, "cli_processes")
+
+
+def _save_address(addr: str) -> None:
+    os.makedirs(os.path.dirname(ADDR_FILE), exist_ok=True)
+    with open(ADDR_FILE, "w") as f:
+        f.write(addr)
+
+
+def _record_process(proc: subprocess.Popen, cmd: list,
+                    session: str = "") -> None:
+    """Remember a started process by its pid and its command line (as
+    /proc shows it once the child has exec'd), so `stop` never signals a
+    pid the system has since given to another program."""
+    os.makedirs(STATE_DIR, exist_ok=True)
+    with open(PROCS_FILE, "a") as f:
+        f.write(json.dumps({"pid": proc.pid, "session": session,
+                            "cmd": "\0".join(cmd) + "\0"}) + "\n")
 
 
 def _resolve_address(args) -> str:
     addr = getattr(args, "address", None) or _cfg.get("address") or None
+    if not addr and os.path.exists(ADDR_FILE):
+        addr = open(ADDR_FILE).read().strip()
     if not addr:
-        sys.exit("no cluster address: pass --address or set "
-                 "RAY_TPU_ADDRESS")
+        sys.exit("no cluster address: pass --address, set RAY_TPU_ADDRESS, "
+                 "or run `start --head` on this machine first")
     return addr
 
 
@@ -34,6 +73,137 @@ def _connect(args):
     return _global_client()
 
 
+# ------------------------------------------------------------------- start
+def cmd_start(args) -> None:
+    from ray_tpu_torch.core.resources import strip_device_env
+
+    env = strip_device_env(dict(os.environ))
+    if args.head:
+        session = f"cli{os.getpid()}{int(time.time()) % 100000}"
+        cmd = [sys.executable, "-m", "ray_tpu_torch.core.head_main",
+               "--session", session, "--port", str(args.port)]
+        if args.num_cpus is not None:
+            cmd += ["--num-cpus", str(args.num_cpus)]
+        if args.num_gpus is not None:
+            cmd += ["--num-gpus", str(args.num_gpus)]
+        if args.resources:
+            cmd += ["--resources", args.resources]
+        fd, port_file = tempfile.mkstemp(prefix="ray_tpu_torch_ports_")
+        os.close(fd)
+        os.unlink(port_file)   # head_main atomically re-creates it when ready
+        cmd += ["--port-file", port_file]
+        # fully detach stdio: a live head must not hold the CLI's pipes —
+        # an inherited stdout OR stderr keeps `start --head | tee` (and
+        # any capture_output caller) waiting for EOF forever. stderr goes
+        # to a session log file so head errors stay diagnosable.
+        from ray_tpu_torch.core.worker_logs import session_log_dir
+
+        err_path = os.path.join(session_log_dir(session), "head.err")
+        with open(err_path, "ab") as errf:
+            proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                    stderr=errf, start_new_session=True,
+                                    env=env)
+        _record_process(proc, cmd, session)
+        port = cproxy = None
+        try:
+            deadline = time.time() + 60
+            while time.time() < deadline:
+                if proc.poll() is not None:
+                    sys.exit("head failed to start")
+                if os.path.exists(port_file):
+                    ports = json.load(open(port_file))
+                    port = ports["port"]
+                    cproxy = ports.get("client_proxy_port")
+                    break
+                time.sleep(0.05)
+        finally:
+            try:
+                os.unlink(port_file)
+            except OSError:
+                pass
+        if port is None:
+            proc.terminate()
+            sys.exit("head failed to start (timeout)")
+        addr = f"127.0.0.1:{port}"
+        _save_address(addr)
+        print(f"started head at {addr} (pid {proc.pid})")
+        print(f"join with: python -m ray_tpu_torch.scripts.cli start "
+              f"--address={addr}")
+        print(f"drivers:   RAY_TPU_ADDRESS={addr} python my_script.py")
+        if cproxy:
+            print(f"remote drivers: ray_tpu_torch.init("
+                  f"address=\"ray-tpu://<this-host>:{cproxy}\")")
+    else:
+        if not args.address:
+            sys.exit("worker nodes need --address=<head host:port>")
+        cmd = [sys.executable, "-m", "ray_tpu_torch.core.node_main",
+               "--address", args.address]
+        if args.num_cpus is not None:
+            cmd += ["--num-cpus", str(args.num_cpus)]
+        if args.num_gpus is not None:
+            cmd += ["--num-gpus", str(args.num_gpus)]
+        if args.resources:
+            cmd += ["--resources", args.resources]
+        if args.labels:
+            cmd += ["--labels", args.labels]
+        # same detachment as the head branch: the daemon must not hold the
+        # CLI's pipes or die with the terminal; stderr to a state-dir file
+        os.makedirs(STATE_DIR, exist_ok=True)
+        with open(os.path.join(STATE_DIR, "node_daemon.err"), "ab") as errf:
+            proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                    stderr=errf, start_new_session=True,
+                                    env=env)
+        _record_process(proc, cmd)
+        print(f"node daemon started (pid {proc.pid}), joined {args.address}")
+    if args.block:
+        try:
+            proc.wait()
+        except KeyboardInterrupt:
+            proc.terminate()
+
+
+def cmd_stop(args) -> None:
+    from ray_tpu_torch.cluster_utils import (STOP_TIMEOUT_S, _cmdline,
+                                             _kill_if_same)
+    from ray_tpu_torch.core.store import SHM_PREFIX
+
+    try:
+        with open(PROCS_FILE) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+    except OSError:
+        rows = []
+    for r in rows:
+        r["cmd"] = r["cmd"].encode()
+    # only a pid that still runs the command `start` launched is ours
+    live = [r for r in rows if _cmdline(r["pid"]) == r["cmd"]]
+    # daemons first, then heads: a head stopping first would make its
+    # daemons' workers reconnect-loop instead of being killed
+    live.sort(key=lambda r: bool(r["session"]))
+    for r in live:
+        try:
+            os.kill(r["pid"], signal.SIGTERM)
+        except ProcessLookupError:
+            pass
+    deadline = time.monotonic() + STOP_TIMEOUT_S
+    while time.monotonic() < deadline and any(
+            _cmdline(r["pid"]) == r["cmd"] for r in live):
+        time.sleep(0.05)
+    for r in live:
+        _kill_if_same(r["pid"], r["cmd"])
+    for r in rows:
+        if r["session"]:
+            for seg in glob.glob(f"/dev/shm/{SHM_PREFIX}*{r['session'][:8]}*"):
+                try:
+                    os.unlink(seg)
+                except OSError:
+                    pass
+    for path in (PROCS_FILE, ADDR_FILE):
+        if os.path.exists(path):
+            os.unlink(path)
+    print(f"stopped {len(live)} process(es)" if live else "nothing to stop")
+
+
+# ------------------------------------------------------------------ status
 def cmd_status(args) -> None:
     client = _connect(args)
     info = client.head_request("cluster_info")
@@ -54,6 +224,43 @@ def cmd_list(args) -> None:
     rows = client.head_request("list_state", kind=kind)
     print(json.dumps(rows[:args.limit] if args.limit else rows, indent=2,
                      default=str))
+
+
+def cmd_summary(args) -> None:
+    _connect(args)
+    from ray_tpu_torch.util import state
+
+    print(json.dumps({"tasks": state.summarize_tasks(),
+                      "actors": state.summarize_actors(),
+                      "objects": state.summarize_objects()}, indent=2))
+
+
+def cmd_timeline(args) -> None:
+    _connect(args)
+    import ray_tpu_torch
+
+    output = args.output or os.path.join(tempfile.gettempdir(),
+                                         "ray_tpu_torch_timeline.json")
+    events = ray_tpu_torch.timeline(output, format=args.format)
+    print(f"wrote {len(events)} trace events to {output}")
+
+
+def cmd_stack(args) -> None:
+    """Live thread stacks of cluster processes (reference `ray stack`,
+    done cooperatively instead of via py-spy/ptrace)."""
+    client = _connect(args)
+    rows = client.head_request("list_state", kind="workers")
+    if args.worker:
+        rows = [w for w in rows if w["worker_id"].startswith(args.worker)]
+        if not rows:
+            sys.exit(f"no worker with id prefix {args.worker!r}")
+    for w in rows:
+        print(f"===== worker {w['worker_id'][:12]} pid={w['pid']} "
+              f"{'driver' if w['is_driver'] else 'worker'}"
+              f"{' actor=' + w['actor'][:12] if w.get('actor') else ''}")
+        text = client.head_request("worker_stacks",
+                                   worker_id=bytes.fromhex(w["worker_id"]))
+        print(text or "<unreachable>")
 
 
 def cmd_config(args) -> None:
@@ -107,12 +314,44 @@ def cmd_logs(args) -> None:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ray_tpu_torch.scripts.cli",
-        description="introspection of a ray_tpu_torch cluster")
+        description="bring-up and introspection of a ray_tpu_torch cluster")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    sp = sub.add_parser("status")
+    sp = sub.add_parser("start", help="start a head or worker node")
+    sp.add_argument("--head", action="store_true")
     sp.add_argument("--address", default=None)
-    sp.set_defaults(fn=cmd_status)
+    sp.add_argument("--port", type=int, default=0)
+    sp.add_argument("--num-cpus", type=float, default=None)
+    sp.add_argument("--num-gpus", type=int, default=None)
+    sp.add_argument("--resources", default=None, help="JSON dict")
+    sp.add_argument("--labels", default=None, help="JSON dict (worker nodes)")
+    sp.add_argument("--block", action="store_true")
+    sp.set_defaults(fn=cmd_start)
+
+    sp = sub.add_parser("stop", help="stop the processes `start` launched "
+                                     "on this machine")
+    sp.set_defaults(fn=cmd_stop)
+
+    for name, fn in (("status", cmd_status), ("summary", cmd_summary)):
+        sp = sub.add_parser(name)
+        sp.add_argument("--address", default=None)
+        sp.set_defaults(fn=fn)
+
+    sp = sub.add_parser("timeline", help="dump a Chrome trace")
+    sp.add_argument("--output", default=None,
+                    help="default: ray_tpu_torch_timeline.json in the "
+                         "temp directory")
+    sp.add_argument("--format", default=None, choices=["chrome"],
+                    help="'chrome' writes the Trace Event Object envelope "
+                         "(Perfetto-loadable) incl. cross-process workload "
+                         "spans; default is the legacy bare array")
+    sp.add_argument("--address", default=None)
+    sp.set_defaults(fn=cmd_timeline)
+
+    sp = sub.add_parser("stack", help="dump live thread stacks of workers")
+    sp.add_argument("--worker", default=None, help="worker id hex prefix")
+    sp.add_argument("--address", default=None)
+    sp.set_defaults(fn=cmd_stack)
 
     sp = sub.add_parser("list", help="list cluster state")
     sp.add_argument("kind", choices=["tasks", "task_events", "actors",

@@ -748,3 +748,89 @@ def test_runtime_nccl_actor_group_across_cards(cuda):
         np.testing.assert_array_equal(g["broadcast"].numpy(), xs[1])
         np.testing.assert_array_equal(
             np.stack([p.numpy() for p in g["allgather"]]), np.stack(xs))
+
+
+@pytest.mark.cuda
+def test_multinode_across_cards(cuda):
+    # a head with no GPU and two node daemons naming two cards each
+    # (CUDA_VISIBLE_DEVICES "0,1" and "2,3", num_gpus=2): a STRICT_SPREAD
+    # group of {"GPU": 2, "CPU": 1} bundles puts one actor on each node;
+    # the cards each sees are disjoint and together the machine's four;
+    # the two form an NCCL group (one card each) whose allreduce and
+    # broadcast are exact; one daemon killed, the other node's actor still
+    # answers; nothing of the session is left after the shutdown
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.util import placement_group
+    from ray_tpu_torch.util.collective import collective as col
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards: two nodes of two")
+    everyone = sorted(str(torch.cuda.get_device_properties(i).uuid)
+                      for i in range(torch.cuda.device_count()))
+    rng = np.random.default_rng(23)
+    xs = [rng.standard_normal((4, 1024)).astype(np.float32) for _ in range(2)]
+
+    class NodeMember:
+        def cards(self):
+            import os as _os
+
+            import torch as _torch
+
+            return (_os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    sorted(str(_torch.cuda.get_device_properties(i).uuid)
+                           for i in range(_torch.cuda.device_count())))
+
+        def run(self, x):
+            import torch as _torch
+
+            from ray_tpu_torch.util.collective import collective as c
+
+            c.get_group("nodes2")   # attaches: takes this member's card
+            dev = _torch.cuda.current_device()
+            t = _torch.from_numpy(x).to(_torch.device("cuda", dev))
+            return {"allreduce": c.allreduce(t.clone(), group_name="nodes2"),
+                    "broadcast": c.broadcast(t.clone(), src_rank=1,
+                                             group_name="nodes2"),
+                    "uuid": str(_torch.cuda.get_device_properties(dev).uuid)}
+
+        def ping(self):
+            import os as _os
+
+            return _os.getpid()
+
+    c = Cluster(num_cpus=0)
+    try:
+        nodes = [c.add_node(num_cpus=2, num_gpus=2,
+                            env={"CUDA_VISIBLE_DEVICES": vis})
+                 for vis in ("0,1", "2,3")]
+        c.connect()
+        c.wait_for_nodes(3)
+        assert rt.cluster_resources().get("GPU") == 4
+        pg = placement_group([{"GPU": 2, "CPU": 1}] * 2,
+                             strategy="STRICT_SPREAD")
+        assert pg.ready(timeout=60)
+        actors = [rt.remote(NodeMember).options(
+            num_cpus=1, num_gpus=2, placement_group=pg,
+            placement_group_bundle_index=i).remote() for i in range(2)]
+        cards = rt.get([a.cards.remote() for a in actors], timeout=300)
+        col.create_collective_group(actors, 2, [0, 1], backend="nccl",
+                                    group_name="nodes2")
+        got = rt.get([a.run.remote(x) for a, x in zip(actors, xs)],
+                     timeout=300)
+        c.kill_node(nodes[0])
+        survivor = [a for a, (vis, _) in zip(actors, cards) if vis == "2,3"]
+        assert len(survivor) == 1
+        assert rt.get(survivor[0].ping.remote(), timeout=60) > 0
+    finally:
+        rt.shutdown()
+        c.shutdown()
+    assert c.processes() == [] and c.segments() == []
+    assert sorted(vis for vis, _ in cards) == ["0,1", "2,3"]
+    a_cards, b_cards = (set(u) for _, u in cards)
+    assert len(a_cards) == len(b_cards) == 2 and not a_cards & b_cards
+    assert sorted(a_cards | b_cards) == everyone
+    assert got[0]["uuid"] != got[1]["uuid"]
+    for g in got:
+        np.testing.assert_array_equal(g["allreduce"].numpy(), xs[0] + xs[1])
+        np.testing.assert_array_equal(g["broadcast"].numpy(), xs[1])
