@@ -139,6 +139,26 @@ Phases, each reported on its own line:
    gets prompt a's tokens through the head's client proxy
    (ray-tpu://) without mapping libcuda; the shutdown leaves no process
    and no rtpt_* segment of the session.
+16. the object plane's device half (phase_objects), on phase 15's cluster
+   shape: (a) a num_gpus=1 actor on node a keeps prompt a's first-token
+   logits (12/0/0 launches in its process) and phase 14's 256 MiB bf16
+   tensor on its card as a device object (tensor_transport="device"); its
+   own get returns the living tensors (same data_ptr); this process and an
+   actor on node a get CUDA tensors on their own cuda:0, bit-equal, from
+   ONE snapshot the owner stages (one device-to-host copy a CUDA leaf,
+   meta under 4096 B, every byte out of band); an actor on node b gets
+   them through the chunked pull; every ref dropped, the owner's device
+   store empties and the snapshot's arena bytes come back; gets timed by
+   route; (b) phase 14's server built from the seeded GPT-2-125M
+   checkpoint: R1 on node a reads it (source "checkpoint") and publishes
+   it on the weight plane, R2 on node b pulls it from R1 (source "p2p")
+   with no head RPC in its build, its params bit-equal to R1's, host peak
+   within max_in_flight x chunk_bytes, phase 14's greedy tokens, R1's
+   logits bit-equal, 12/0/0 in its process, resolve and pull timed; (c)
+   with cluster_prefix_cache=True, R2 warm-starts a 600-token prompt R1
+   served: one store hit, every whole 16-token block of len-1 covered,
+   fewer prefill steps than R1's, R1's tokens, no head RPC on the warm
+   path, TTFT of both.
 Phase 10 also runs the ring at a ragged chunk (Llama-3-8B widths,
 T=16000 on sp=4: chunks of 4000 padded to 4096, the padded keys masked by
 K1's and K2's kv_len) and holds each padded chunk pair against the plain
@@ -160,7 +180,7 @@ that expansion. Phases 4-5 (GPT-2 inference), 5b (the OpenAI server), 6
 (GPT-2 training), 6b's (b) (data-parallel training), 6c's (a) and (c)
 (sharded training), 7, 8, 9, each case of 10, 11, 12 and 13's (b) are
 the main paths: every kernel's launch count is set to 0 before each and read right
-after. The line before the last lists the kernels as JSON, with the GPT-2
+after; in phases 14-16 each actor or task counts its own launches from 0. The line before the last lists the kernels as JSON, with the GPT-2
 training path's counts under "launches", every path's under
 "launches_by_path", the ring's non-causal chunk pair under "ring_chunk",
 its ragged one under "ring_ragged_chunk" and the head dim 80 case under
@@ -197,6 +217,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 import torch.nn.functional as F
 
+import ray_tpu_torch
 from ray_tpu_torch.models import gpt2, llama, moe
 from ray_tpu_torch.ops import _kernels
 from ray_tpu_torch.ops import flash_attention as fa
@@ -3624,6 +3645,7 @@ def phase_multinode(card: str) -> dict:
                      and torch.equal(got.view(torch.int16),
                                      want_t.view(torch.int16)))
         same_ms = RUNTIME_REF.get("same_node_get_ms")
+        RUNTIME_REF["pull_gbps"] = nbytes / pull_s / 1e9   # for phase 16
         log(f"[multinode] a task's {nbytes >> 20} MiB bf16 CUDA tensor on "
             f"node {nodes[n2]} got in the head's namespace as a "
             f"{got.device.type} {got.dtype} tensor, bit-equal {bit_equal}; "
@@ -3779,6 +3801,478 @@ def phase_multinode(card: str) -> dict:
                     raise AssertionError("the cluster leaked")
 
 
+# ----------------------- phase 16: the object plane's device half, served
+# Phase 15's cluster shape again (two one-GPU daemons on the one card, a
+# head with no GPU, store isolation). (a) a num_gpus=1 actor on node a
+# keeps prompt a's first-token logits (gpt2.forward: K1 once a layer,
+# counted in its process) and phase 14's 256 MiB bf16 tensor on its card
+# as a device object, got by itself (the living tensors), by this process
+# and by an actor on node a (one snapshot staged between them) and by an
+# actor on node b (the chunked pull); (b) phase 14's server built from the
+# seeded GPT-2-125M checkpoint: R1 on node a reads the checkpoint and
+# publishes it on the weight plane, R2 on node b pulls it from R1 with no
+# head RPC; (c) R2 warm-starts from the cluster prefix tier a prompt R1
+# served.
+OBJ_SHARED_LEN = 600     # (c)'s shared prompt, past 512 tokens
+OBJ_WAIT_S = 60
+
+
+def _digest(t) -> str:
+    """blake2b of a tensor's bytes, brought to the host."""
+    import hashlib
+
+    raw = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+    return hashlib.blake2b(raw.numpy(), digest_size=16).hexdigest()
+
+
+def _device_stats() -> dict:
+    """This process's device-object counts: snapshots staged and their
+    device-to-host copies, host-to-device copies on get, values held."""
+    from ray_tpu_torch.core import api as rt_api
+    from ray_tpu_torch.core import device_transport as dt
+
+    client = rt_api._global_client()
+    return {**{k: dt.STATS[k] for k in ("snapshots_staged", "d2h_copies",
+                                        "h2d_copies")},
+            "device_objects": len(client.device_store),
+            "cached_snapshots": len(client._device_snapshots)}
+
+
+def _want_device() -> str:
+    """Where a consumer's rematerialized CUDA leaves must land."""
+    return "cuda:0" if torch.device(DEVICE).type == "cuda" else "cpu"
+
+
+def _obj_fetch(ref) -> dict:
+    """A device object's get, timed: where each leaf landed, its digest,
+    and whether the snapshot was pulled across nodes."""
+    from ray_tpu_torch.core import api as rt_api
+    from ray_tpu_torch.core.device_transport import snapshot_oid
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    val = rt.get(ref, timeout=600)
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    client = rt_api._global_client()
+    snap = snapshot_oid(ref.id)
+    return {"ms": ms, "devices": {k: str(v.device) for k, v in val.items()},
+            "digests": {k: _digest(v) for k, v in val.items()},
+            "pulled": snap in client._pulled or snap in client._daemon_pulled,
+            "pid": os.getpid()}
+
+
+class ObjectsOwner:
+    """(a)'s owner: the seeded GPT-2-125M params on its card."""
+
+    def __init__(self):
+        _no_tf32()
+        self.cfg = _rt_cfg()
+        self.params = gpt2.init_params(torch.Generator().manual_seed(0),
+                                       self.cfg, DEVICE)
+        self.out = self.launches = None
+
+    @ray_tpu_torch.method(tensor_transport="device")
+    def produce(self, prompt) -> dict:
+        _zero_counts()
+        with torch.inference_mode():
+            ids = torch.tensor([prompt], device=DEVICE)
+            logits = gpt2.forward(self.params, ids, self.cfg)[0, -1]
+        self.launches = _flash_counts()
+        self.out = {"logits": logits.clone(),
+                    "blob": _rt_object(RUNTIME_OBJECT_BYTES)}
+        return self.out
+
+    def same(self, box) -> dict:
+        """The owner's own get: the living tensors, the same data_ptr."""
+        import ray_tpu_torch as rt
+
+        got = rt.get(box["r"], timeout=60)
+        return {k: got[k] is v and got[k].data_ptr() == v.data_ptr()
+                for k, v in self.out.items()}
+
+    def digests(self) -> dict:
+        return {k: _digest(v) for k, v in self.out.items()}
+
+    def snapshot(self, box) -> dict:
+        """The cached snapshot: its store kind, meta bytes, out-of-band
+        buffer bytes, and whether the store still holds it."""
+        from ray_tpu_torch.core import api as rt_api
+        from ray_tpu_torch.core.device_transport import snapshot_oid
+
+        client = rt_api._global_client()
+        meta = client._device_snapshots.get(box["r"].id)
+        if meta is None:
+            return {"held": False}
+        ser = client.store.get_serialized(meta)
+        return {"held": True, "kind": meta.kind, "meta": len(ser.meta),
+                "buffers": [b.nbytes for b in ser.buffers],
+                "oid": snapshot_oid(box["r"].id).binary()}
+
+    def arena(self, oid: bytes = b"") -> tuple:
+        """(bytes used in this node's arena, whether it holds `oid`)."""
+        from ray_tpu_torch.core import api as rt_api
+
+        arena = rt_api._global_client().store._get_arena()
+        if arena is None:
+            return None, False
+        return arena.stats()[0], bool(oid) and arena.contains(oid)
+
+    def stats(self) -> dict:
+        return {**_device_stats(), "launches": self.launches,
+                "leaf_bytes": sorted(v.numel() * v.element_size()
+                                     for v in (self.out or {}).values())}
+
+    def drop(self) -> bool:
+        self.out = None
+        return True
+
+
+class ObjectsConsumer:
+    """A get of (a)'s device object in a process of its own."""
+
+    def warm(self) -> int:
+        """This process's CUDA context, made before the timed get."""
+        if torch.device(DEVICE).type == "cuda":
+            torch.zeros(1, device=DEVICE)
+            torch.cuda.synchronize()
+        return os.getpid()
+
+    def fetch(self, box) -> dict:
+        return _obj_fetch(box["r"])
+
+
+class PlaneReplica:
+    """(b) and (c)'s replica: phase 14's server built from the checkpoint,
+    with the cluster prefix tier."""
+
+    def __init__(self):
+        _no_tf32()
+        self.server = None
+
+    def wait_binding(self, ckpt: str) -> float:
+        """Seconds until this process's directory resolves `ckpt` on the
+        weight plane."""
+        from ray_tpu_torch.serve import weight_store as ws
+
+        t0 = time.perf_counter()
+        while ws.get_store().resolve(ckpt) is None:
+            if time.perf_counter() - t0 > OBJ_WAIT_S:
+                raise AssertionError(f"{ckpt} never reached the directory")
+            time.sleep(0.05)
+        return time.perf_counter() - t0
+
+    def build(self, ckpt: str, audit: bool) -> dict:
+        """The server's build, its head RPCs recorded when `audit`; where
+        its weights came from, how the load went, each leaf's digest."""
+        from ray_tpu_torch.serve import weight_store as ws
+        from ray_tpu_torch.serve.disagg import _RpcAudit
+        from ray_tpu_torch.serve.weight_store import _tree_flatten_keyed
+
+        rpc = _RpcAudit()
+        if audit:
+            rpc.start()
+        t0 = time.perf_counter()
+        self.server = LLMServer(
+            preset=PRESET, max_batch=4, max_seq_len=SERVE_WINDOW, seed=0,
+            prefill_chunk_size=64, kv_block_size=16, kv_blocks=64,
+            device=DEVICE, checkpoint=ckpt, cluster_prefix_cache=True)
+        build_s = time.perf_counter() - t0
+        reqs = [m for k, m in rpc.stop() if k == "req"]
+        eng = self.server.engine
+        return {"source": eng.weights_source, "cold_start_s":
+                eng.cold_start_s, "build_s": build_s, "reqs": reqs,
+                "load": dict(ws.get_store().last_load_stats),
+                "digests": {k: _digest(v)
+                            for k, v in _tree_flatten_keyed(eng.params)},
+                "pid": os.getpid()}
+
+    def weights_published(self) -> int:
+        from ray_tpu_torch.serve import weight_store as ws
+
+        return ws.get_store().stats()["published"]
+
+    def serve(self, prompts) -> tuple:
+        _zero_counts()
+        tokens, logits = _rt_serve(self.server, prompts)
+        return tokens, logits, _flash_counts()
+
+    def prefix_published(self) -> int:
+        return self.server.prefix_store.stats()["published"]
+
+    def probe(self, ids) -> int:
+        hit = self.server.prefix_store.lookup(list(ids), count=False)
+        return 0 if hit is None else hit["n"]
+
+    def prefix_serve(self, ids, audit: bool) -> dict:
+        """One request; its prefill steps, TTFT, store hits and imported
+        blocks, and head RPCs on the way when `audit`."""
+        from ray_tpu_torch.serve.disagg import _RpcAudit
+
+        eng, store = self.server.engine, self.server.prefix_store
+        e0, s0 = eng.engine_stats(), store.stats()
+        rpc = _RpcAudit()
+        if audit:
+            rpc.start()
+        out = self.server({"prompt_ids": list(ids),
+                           "max_tokens": RUNTIME_NEW})
+        reqs = [m for k, m in rpc.stop() if k == "req"]
+        e1, s1 = eng.engine_stats(), store.stats()
+        return {"tokens": out["choices"][0]["token_ids"],
+                "prefill_steps": e1["chunk_steps"] - e0["chunk_steps"],
+                "ttft_s": e1["last_ttft_s"],
+                "hits": s1["store_hits"] - s0["store_hits"],
+                "blocks": e1["prefix_blocks_imported"]
+                - e0["prefix_blocks_imported"], "reqs": reqs}
+
+
+def _rt_cfg():
+    """The configuration of phase 14's server (its window as max_seq_len)."""
+    return gpt2.GPT2Config.preset(PRESET, max_seq_len=SERVE_WINDOW)
+
+
+def _save_seeded_checkpoint(tmp: str) -> tuple:
+    """The seeded GPT-2-125M params (phase 14's server's) written by
+    gpt2.save_params: (path, parameter count, checkpoint bytes)."""
+    cfg = _rt_cfg()
+    params = gpt2.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    n = sum(p.size for p in gpt2.params_to_numpy(params).values())
+    path = gpt2.save_params(os.path.join(tmp, "ckpt"), params, cfg)
+    return path, n, os.path.getsize(os.path.join(path, "params.npz"))
+
+
+def _objects_device(rt, card) -> dict:
+    """(a): returns the owner's launches."""
+    cfg = gpt2.GPT2Config.preset(PRESET)
+    want = (cfg.n_layer, 0, 0)
+    prompts = _rt_prompts()
+    owner = rt.remote(ObjectsOwner).options(
+        num_gpus=1, label_selector={"zone": "a"}).remote()
+    near = rt.remote(ObjectsConsumer).options(
+        label_selector={"zone": "a"}).remote()
+    far = rt.remote(ObjectsConsumer).options(
+        num_gpus=1, label_selector={"zone": "b"}).remote()
+    rt.get([near.warm.remote(), far.warm.remote()], timeout=RUNTIME_SPAWN_S)
+    t0 = time.perf_counter()
+    ref = owner.produce.remote(prompts[0])
+    rt.wait([ref], timeout=RUNTIME_SPAWN_S)
+    produce_s = time.perf_counter() - t0
+    stats = rt.get(owner.stats.remote(), timeout=60)
+    if stats["launches"] is None:
+        rt.get(ref, timeout=60)   # raises the owner's error
+    box = {"r": ref}
+    same = rt.get(owner.same.remote(box), timeout=60)
+    want_dig = rt.get(owner.digests.remote(), timeout=120)
+    used0, _ = rt.get(owner.arena.remote(), timeout=60)
+    here = _obj_fetch(ref)
+    there = rt.get(near.fetch.remote(box), timeout=600)
+    staged_ab = rt.get(owner.stats.remote(), timeout=60)
+    snap = rt.get(owner.snapshot.remote(box), timeout=60)
+    used1, held1 = rt.get(owner.arena.remote(snap.get("oid", b"")),
+                          timeout=60)
+    far_out = rt.get(far.fetch.remote(box), timeout=600)
+    staged_all = rt.get(owner.stats.remote(), timeout=60)
+    leaf_bytes = sum(stats["leaf_bytes"])
+    dev = _want_device()
+    got = {"this process (head node)": here, "actor on node a": there,
+           "actor on node b": far_out}
+    log(f"[objects] (a) owner on node a "
+        f"(num_gpus=1): prompt a's first-token logits through gpt2.forward "
+        f"and phase 14's {RUNTIME_OBJECT_BYTES >> 20} MiB bf16 tensor kept "
+        f"on its card in {produce_s:.2f} s from the call (its actor built "
+        f"while the consumers warmed up), "
+        f"launches K1/K2/K3 {stats['launches']} (want {want}); the owner's "
+        f"own get returns the living tensors (identity, same data_ptr): "
+        f"{same}")
+    for where, r in got.items():
+        log(f"[objects] (a) get in the {where} (pid {r['pid']}): leaves on "
+            f"{sorted(set(r['devices'].values()))} (want {dev}), bit-equal "
+            f"to the owner's {r['digests'] == want_dig}, snapshot pulled "
+            f"across nodes {r['pulled']}, {r['ms']:.1f} ms = "
+            f"{leaf_bytes / r['ms'] / 1e6:.3f} GB/s")
+    log(f"[objects] (a) the owner staged {staged_ab['snapshots_staged']} "
+        f"snapshot(s) for this process and node a's actor, "
+        f"{staged_all['snapshots_staged']} after node b's too, with "
+        f"{staged_all['d2h_copies']} device-to-host copies (one a CUDA "
+        f"leaf); the snapshot: store kind {snap.get('kind')}, pickle meta "
+        f"{snap.get('meta')} B, out-of-band buffers {snap.get('buffers')} "
+        f"(want {stats['leaf_bytes']} B); node a's arena {used0} -> {used1} B used; phase 14's "
+        f"same-node get of a host tensor {RUNTIME_REF['same_node_get_ms']:.3f}"
+        f" ms, phase 15's cross-node pull {RUNTIME_REF['pull_gbps']:.3f} "
+        f"GB/s; on {card}")
+    _runtime_launch_check("objects owner", stats["launches"], want)
+    if not all(same.values()):
+        raise AssertionError("the owner's own get is not the living value")
+    for where, r in got.items():
+        if r["digests"] != want_dig or set(r["devices"].values()) != {dev}:
+            raise AssertionError(f"the get in the {where} differs")
+    if here["pulled"] is not True or far_out["pulled"] is not True \
+            or there["pulled"] is not False:
+        raise AssertionError("a get took the wrong route")
+    on_card = torch.device(DEVICE).type == "cuda"
+    if staged_ab["snapshots_staged"] != 1 or \
+            staged_all["snapshots_staged"] != 1 or \
+            staged_all["d2h_copies"] != (2 if on_card else 0):
+        raise AssertionError("the owner staged more than one snapshot")
+    if snap.get("meta", 1 << 20) >= 4096 or \
+            sorted(snap["buffers"]) != stats["leaf_bytes"] or \
+            RUNTIME_OBJECT_BYTES not in stats["leaf_bytes"]:
+        raise AssertionError("the snapshot's bytes did not go out of band")
+    # every ref dropped: the device store empties, the snapshot goes
+    del ref, box
+    rt.get(owner.drop.remote(), timeout=60)
+    gc.collect()
+    deadline = time.perf_counter() + OBJ_WAIT_S
+    while True:
+        left = rt.get(owner.stats.remote(), timeout=60)
+        used2, held2 = rt.get(owner.arena.remote(snap["oid"]), timeout=60)
+        if not left["device_objects"] and not left["cached_snapshots"] \
+                and not held2:
+            break
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"the device object was not freed: {left}")
+        time.sleep(0.1)
+    log(f"[objects] (a) every ref dropped: the owner's device store holds "
+        f"{left['device_objects']}, cached snapshots {left['cached_snapshots']}"
+        f", the arena holds the snapshot {held2}; node a's arena {used1} -> "
+        f"{used2} B used (before staging {used0})")
+    if used0 is not None and (held1 is not True or used2 > used0):
+        raise AssertionError("the snapshot's arena bytes did not come back")
+    for a in (owner, near, far):
+        rt.kill(a)
+    return {"objects owner forward": tuple(stats["launches"])}
+
+
+def _objects_weights(rt, card, tmp) -> tuple:
+    """(b) and (c): returns the replicas' launches and the replicas."""
+    cfg = gpt2.GPT2Config.preset(PRESET)
+    want = (cfg.n_layer, 0, 0)
+    prompts = _rt_prompts()
+    ref_tokens = RUNTIME_REF["tokens"]
+    t0 = time.perf_counter()
+    path, n_params, ck_bytes = _save_seeded_checkpoint(tmp)
+    log(f"[objects] (b) checkpoint: {n_params} parameters of {PRESET}, "
+        f"{4 * n_params} B in f32, params.npz {ck_bytes} B, written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    r1 = rt.remote(PlaneReplica).options(
+        num_gpus=1, label_selector={"zone": "a"}).remote()
+    r2 = rt.remote(PlaneReplica).options(
+        num_gpus=1, label_selector={"zone": "b"}).remote()
+    b1 = rt.get(r1.build.remote(path, False), timeout=RUNTIME_SPAWN_S)
+    tok1, log1, l1 = rt.get(r1.serve.remote(prompts), timeout=600)
+    wait_s = rt.get(r2.wait_binding.remote(path), timeout=600)
+    pub = rt.get(r1.weights_published.remote(), timeout=60)
+    b2 = rt.get(r2.build.remote(path, True), timeout=RUNTIME_SPAWN_S)
+    tok2, log2, l2 = rt.get(r2.serve.remote(prompts), timeout=600)
+    ld = b2["load"]
+    budget = ld.get("max_in_flight", 0) * ld.get("chunk_bytes", 0)
+    resolve_s, load_s = ld.get("resolve_s", 0.0), ld.get("seconds", 0.0)
+    same_leaves = b1["digests"] == b2["digests"]
+    log(f"[objects] (b) R1 (node a, pid {b1['pid']}): weights from "
+        f"{b1['source']}, cold start {b1['cold_start_s']:.2f} s, server "
+        f"built in {b1['build_s']:.2f} s, published on the weight plane "
+        f"({pub} publication(s)); R2's directory resolved it after "
+        f"{wait_s:.2f} s")
+    log(f"[objects] (b) R2 (node b, pid {b2['pid']}): weights from "
+        f"{b2['source']}, head RPCs in its engine's build {b2['reqs']}; "
+        f"resolve {resolve_s:.4f} s, pull {load_s - resolve_s:.2f} s, "
+        f"cold start {b2['cold_start_s']:.2f} s, server built in "
+        f"{b2['build_s']:.2f} s; {ld.get('bytes')} B = "
+        f"{ld.get('bytes', 0) / max(load_s, 1e-9) / 1e9:.3f} GB/s; peak host bytes {ld.get('peak_host_bytes')} (budget "
+        f"max_in_flight x chunk_bytes = {budget}); params bit-equal to R1's "
+        f"leaf by leaf: {same_leaves} ({len(b2['digests'])} leaves); greedy "
+        f"tokens of a and b equal to phase 14's: R1 {tok1 == ref_tokens}, R2 "
+        f"{tok2 == ref_tokens}; first-token logits R2 vs R1 bit-equal "
+        f"{torch.equal(log1, log2)}; launches K1/K2/K3 R1 {l1}, R2 {l2} "
+        f"(want {want}); on {card}")
+    if b1["source"] != "checkpoint" or b2["source"] != "p2p":
+        raise AssertionError("the replicas' weights took the wrong route")
+    if b2["reqs"]:
+        raise AssertionError(f"R2's engine build made head RPCs: "
+                             f"{b2['reqs']}")
+    if not same_leaves or not 0 < ld["peak_host_bytes"] <= budget:
+        raise AssertionError("R2's weights differ or overran the host budget")
+    if tok1 != ref_tokens or tok2 != ref_tokens or not torch.equal(log1,
+                                                                   log2):
+        raise AssertionError("the replicas' output differs")
+    _runtime_launch_check("weight plane R1", l1, want)
+    _runtime_launch_check("weight plane R2", l2, want)
+
+    # (c) the cluster prefix tier: R1 serves and publishes, R2 warm-starts
+    shared = _prompt(4, OBJ_SHARED_LEN)
+    p1 = rt.get(r1.prefix_serve.remote(shared, False), timeout=600)
+    whole = (len(shared) - 1) // 16 * 16
+    t0 = time.perf_counter()
+    while (rt.get(r1.prefix_published.remote(), timeout=60) < 1
+           or rt.get(r2.probe.remote(shared[:-1]), timeout=60) < whole):
+        if time.perf_counter() - t0 > OBJ_WAIT_S:
+            raise AssertionError("R1's prefix never reached R2's directory")
+        time.sleep(0.05)
+    covered = rt.get(r2.probe.remote(shared[:-1]), timeout=60)
+    p2 = rt.get(r2.prefix_serve.remote(shared, True), timeout=600)
+    log(f"[objects] (c) a {len(shared)}-token prompt: R1 prefilled it in "
+        f"{p1['prefill_steps']} engine steps, TTFT {1e3 * p1['ttft_s']:.1f} "
+        f"ms, and published it; R2's directory covered {covered} tokens "
+        f"(whole 16-token blocks of len-1: {whole}) after "
+        f"{time.perf_counter() - t0:.2f} s; R2: store hits {p2['hits']}, "
+        f"blocks imported {p2['blocks']}, prefill steps "
+        f"{p2['prefill_steps']}, TTFT {1e3 * p2['ttft_s']:.1f} ms, head RPCs "
+        f"on its warm path {p2['reqs']}; tokens equal to R1's "
+        f"{p2['tokens'] == p1['tokens']}")
+    if (p2["hits"] != 1 or covered < whole or p2["blocks"] * 16 < whole
+            or p2["prefill_steps"] >= p1["prefill_steps"]
+            or p2["tokens"] != p1["tokens"] or p2["reqs"]):
+        raise AssertionError("R2 did not warm-start from the prefix tier")
+    for a in (r1, r2):
+        rt.kill(a)
+    return {"weight plane R1 serve": tuple(l1),
+            "weight plane R2 (from peers) serve": tuple(l2)}
+
+
+def phase_objects(card: str) -> dict:
+    """The object plane's device half on the card (phase 16): device
+    objects across processes and nodes, the weight plane's peer cold start
+    and the cluster prefix tier. Returns the launches of the owner and of
+    the replicas, each counted in its own process."""
+    from ray_tpu_torch.cluster_utils import Cluster
+    import ray_tpu_torch as rt
+
+    os.environ["RAY_TPU_STORE_ISOLATION"] = "1"
+    c = None
+    tmp = tempfile.mkdtemp(prefix="phase16_")
+    try:
+        t0 = time.perf_counter()
+        c = Cluster(num_cpus=0)
+        for z in ("a", "b"):
+            c.add_node(num_cpus=2, num_gpus=1, labels={"zone": z})
+        c.connect()
+        c.wait_for_nodes(3)
+        log(f"[objects] head + daemons a, b up in "
+            f"{time.perf_counter() - t0:.2f} s; cluster "
+            f"{rt.cluster_resources()}; store isolation on")
+        t0 = time.perf_counter()
+        paths = _objects_device(rt, card)
+        log(f"[objects] (a) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        paths.update(_objects_weights(rt, card, tmp))
+        log(f"[objects] (b), (c) {time.perf_counter() - t0:.1f} s")
+        return paths
+    finally:
+        try:
+            rt.shutdown()
+        finally:
+            os.environ.pop("RAY_TPU_STORE_ISOLATION", None)
+            shutil.rmtree(tmp, ignore_errors=True)
+            if c is not None:
+                c.shutdown()
+                left, segs = c.processes(), c.segments()
+                log(f"[objects] shutdown: processes left {left}, segments "
+                    f"left {segs}")
+                if left or segs:
+                    raise AssertionError("the cluster leaked")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3879,6 +4373,13 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(phase_multinode(card))
     log(f"[multinode] phase {time.perf_counter() - t0:.1f} s; script so far "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # the object plane's device half: the owner's and the replicas'
+    # launches, each counted in its own process from 0
+    t0 = time.perf_counter()
+    paths.update(phase_objects(card))
+    log(f"[objects] phase {time.perf_counter() - t0:.1f} s; script so far "
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"[paths] K1/K2/K3 launches by path: {paths}")
 

@@ -46,7 +46,15 @@ Ported so far:
   `ray-tpu://` through the head's client proxy (`client_proxy`), the state
   API (`util.state`), `timeline`, `util.actor_pool`, `util.queue`,
   `util.multiprocessing`, `util.dask`, `util.joblib`,
-  `experimental.tqdm_ray`, usage stats and the CLI's `start`/`stop`.
+  `experimental.tqdm_ray`, usage stats and the CLI's `start`/`stop`;
+- the object plane's device half: device objects (`put_device`, actor
+  methods with `tensor_transport="device"`; `core.device_store`,
+  `core.device_transport`: shm snapshots staged by one device-to-host copy
+  a CUDA leaf, the gang fetch over a collective group's NCCL), the `kv`
+  collective group (`util.collective.kv_group`), the weight plane
+  (`serve.weight_store`: peer cold start for `LLMEngine(checkpoint=...)`,
+  LoRA adapters) and the cluster prefix tier (`serve.prefix_store`,
+  `LLMServer(cluster_prefix_cache=True)`), `serve.disagg.PrefillServer`.
 
 The runtime API (`init`, `remote`, `get`, ...) loads on first use, so
 `import ray_tpu_torch` stays cheap.

@@ -4,9 +4,10 @@ Counterpart of `ray_tpu/core/api.py`, with GPUs (`num_gpus`, resource
 "GPU") where the JAX package counts TPU chips (`num_tpu_chips`, "TPU").
 The head and its workers run this package's `core.head_main` and
 `core.worker_main`; `init("ray-tpu://host:port")` drives a cluster
-through its head's client proxy. What waits for later parts of the port
-raises NotImplementedError naming its ROADMAP item: device objects
-(`put_device`, item 16) and DAGs (`.bind`, item 17).
+through its head's client proxy. `put_device` keeps a CUDA tensor in its
+process's device store (`core/device_store.py`). What waits for later parts
+of the port raises NotImplementedError naming its ROADMAP item: DAGs
+(`.bind`, item 17).
 """
 
 from __future__ import annotations
@@ -410,12 +411,13 @@ def remote(*args, **options):
 
 
 def put_device(value) -> ObjectRef:
-    """Device objects (a CUDA tensor kept in its process's device store)
-    wait for the port's device transport; `put` carries a CUDA tensor as
-    host bytes meanwhile."""
-    raise NotImplementedError(
-        "device objects wait for the port's device transport (ROADMAP item "
-        "16); put() carries a CUDA tensor as host bytes")
+    """Store a device-resident value (a CUDA tensor, or a tree holding
+    them) in THIS process's device object store: zero-copy for
+    same-process consumers, a shm snapshot or the gang's NCCL for remote
+    ones (reference RDT `tensor_transport` design,
+    `gpu_object_manager.py:22-56`). `put` carries a tensor as host bytes."""
+    _auto_init()
+    return _global_client().put_device(value)
 
 
 def method(**options):

@@ -6,11 +6,13 @@ object put/get/wait, actor calls over direct worker<->worker connections,
 blocked/unblocked notifications to the scheduler. The asyncio loop runs in a
 background thread; the public API is synchronous (like `ray.get`).
 
-Counterpart of `ray_tpu/core/client.py` without its device-object plane
-(`put_device`, device results, snapshot and ICI fetches: ROADMAP item 16)
-and its compiled-DAG channel plane (item 17); those entry points raise
-NotImplementedError naming the item. A torch tensor put or returned here
-travels as host bytes (`serialization`).
+Counterpart of `ray_tpu/core/client.py` without its compiled-DAG channel
+plane (ROADMAP item 17). A torch tensor put or returned here travels as
+host bytes (`serialization`); a device object (`put_device`, an actor
+method with `tensor_transport="device"`) stays in its owner's device store
+(`device_store`) and reaches other processes as a shm snapshot
+(`device_transport`) or, between members of one collective gang, over the
+gang's own transport (NCCL on the card).
 """
 
 from __future__ import annotations
@@ -73,11 +75,18 @@ class CoreClient:
         self.local_metas: Dict[ObjectID, ObjectMeta] = {}
         self._registered: set = set()     # object ids known to head
         self.fn_manager = FunctionManager(self)
+        from ray_tpu_torch.core.device_store import DeviceObjectStore
+
+        self.device_store = DeviceObjectStore()
         self._extra_handlers = dict(handlers or {})
         # head liveness probes (answered on the client's loop thread, so a
         # blocked user thread doesn't read as dead)
         self._extra_handlers.setdefault("health_ping", self._on_health_ping)
         self._extra_handlers.setdefault("pubsub", self._on_pubsub)
+        # head->process push when the directory drops one of our device
+        # objects (refcount reached zero)
+        self._extra_handlers.setdefault("free_device_object",
+                                        self._on_free_device_object)
         self._extra_handlers.setdefault("evicted_object",
                                         self._on_evicted_object)
         self._extra_handlers.setdefault("lease_revoke",
@@ -138,6 +147,10 @@ class CoreClient:
         # in-flight pull dedup, LRU-bounded cache of pulled copies
         self._data_conns: Dict[Tuple[str, int], protocol.Connection] = {}
         self._pull_tasks: Dict[ObjectID, asyncio.Task] = {}
+        # owner-side staged host snapshots of device objects + in-flight
+        # staging dedup (freed with the device object)
+        self._device_snapshots: Dict[ObjectID, ObjectMeta] = {}
+        self._staging: Dict[ObjectID, asyncio.Future] = {}
         # worker leases for direct task pushes (reference
         # NormalTaskSubmitter lease reuse): shape key -> _Lease
         self._leases: Dict[tuple, "_Lease"] = {}
@@ -213,6 +226,21 @@ class CoreClient:
         asyncio.set_event_loop(self.loop)
         protocol.enable_eager_tasks(self.loop)
         self.loop.run_forever()
+
+    async def _on_free_device_object(self, object_id):
+        oid = ObjectID(object_id)
+        self.device_store.pop(oid)
+        snap = self._device_snapshots.pop(oid, None)
+        if snap is not None:
+            # the staged host copy dies with the value. Its arena entry is
+            # deleted here, pins and all: no ref is left, so no consumer is
+            # between its fetch and its copy-out (the JAX package only
+            # drops its own pin, and the snapshot stays in the arena)
+            try:
+                self.store.delete_unregistered(snap)
+            except Exception:
+                pass
+        return True
 
     async def _on_health_ping(self):
         return True
@@ -316,8 +344,195 @@ class CoreClient:
                 pass
         return True
 
+    async def _on_fetch_device_object(self, object_id):
+        """Another process wants a device object we own: stage a host
+        snapshot into node shm (once, in an executor thread: a multi-GB
+        device-to-host copy must not stall this loop) and reply with its
+        tiny meta. The consumer maps the shm directly (same node) or pulls
+        it through the chunked data plane (cross node); the bulk bytes
+        never ride this control connection (reference: accelerator tensor
+        channel, torch_tensor_accelerator_channel.py)."""
+        oid = ObjectID(object_id)
+        try:
+            value = self.device_store.get(oid)
+        except KeyError:
+            raise FileNotFoundError(f"device object {oid} not here") from None
+        meta = self._device_snapshots.get(oid)
+        if meta is None:
+            from ray_tpu_torch.core import device_transport
+
+            task = self._staging.get(oid)
+            if task is None:  # concurrent fetchers share one staging
+                task = asyncio.ensure_future(
+                    asyncio.get_running_loop().run_in_executor(
+                        None, device_transport.stage_snapshot,
+                        self, oid, value))
+                self._staging[oid] = task
+                task.add_done_callback(
+                    lambda t, o=oid: self._staging.pop(o, None))
+            meta = await asyncio.shield(task)
+            if not self.device_store.contains(oid):
+                # freed while we were staging: the free handler saw no
+                # snapshot entry, so the snapshot must be released here or
+                # the shm leaks. Exactly ONE of the concurrent fetchers
+                # sharing this staging task may free it; the check-and-set
+                # is race-free because every waiter resumes on this loop.
+                if not getattr(task, "_orphan_freed", False):
+                    task._orphan_freed = True
+                    try:
+                        self.store.delete_unregistered(meta)
+                    except Exception as e:
+                        print(f"[ray_tpu_torch] freeing orphan snapshot of "
+                              f"{oid.hex()[:12]} failed: {e!r}",
+                              file=sys.stderr, flush=True)
+                raise FileNotFoundError(f"device object {oid} freed")
+            self._device_snapshots[oid] = meta
+        return {"meta": meta}
+
+    @staticmethod
+    def _device_groups() -> dict:
+        """This process's collective groups that can carry device leaves
+        (`DistCollectiveGroup`s: NCCL or gloo), by name. Empty when the
+        collective layer was never imported (no group, and no torch)."""
+        col = sys.modules.get("ray_tpu_torch.util.collective.collective")
+        if col is None:
+            return {}
+        return {name: g for name, g in list(col._groups.items())
+                if getattr(g, "device_plane", False)}
+
+    async def _on_fetch_device_ici(self, object_id, group_name, dst_rank):
+        """Gang-member fetch: a peer of one of our collective groups wants
+        this device object. Ship the tree's skeleton over this control
+        connection and every tensor leaf on the group's device over the
+        group itself (NCCL send/recv between cards, gloo on the CPU), never
+        through host pickle. None when we are not in that group (the
+        consumer falls back to the snapshot route)."""
+        oid = ObjectID(object_id)
+        try:
+            value = self.device_store.get(oid)
+        except KeyError:
+            raise FileNotFoundError(f"device object {oid} not here") from None
+        group = self._device_groups().get(group_name)
+        if group is None:
+            return None
+        import torch
+        from torch.utils import _pytree
+
+        from ray_tpu_torch.core import device_transport as dt
+
+        leaves, spec = _pytree.tree_flatten(value)
+        descs, skeleton_leaves, dev_leaves = [], [], []
+        for leaf in leaves:
+            if (isinstance(leaf, torch.Tensor)
+                    and leaf.device.type == group.device.type):
+                leaf = leaf.detach().contiguous()
+                descs.append({"shape": tuple(leaf.shape),
+                              "dtype": str(leaf.dtype)[len("torch."):]})
+                skeleton_leaves.append(dt.IciLeaf(len(descs) - 1))
+                dev_leaves.append(leaf)
+            else:
+                skeleton_leaves.append(leaf)
+        skeleton = _pytree.tree_unflatten(skeleton_leaves, spec)
+
+        def _send_all():
+            if _config.get("testing_ici_drop_send"):
+                return  # chaos hook: reply sent, transfer never happens
+            for leaf in dev_leaves:
+                group.send_device(leaf, dst_rank)
+
+        # sends run concurrently with the consumer's recvs (each blocks
+        # until both peers join); never on this loop. A failed send leaves
+        # the consumer blocked in its recv until its own deadline; the
+        # failure must at least be loud on the owner.
+        fut = asyncio.get_running_loop().run_in_executor(None, _send_all)
+
+        def _log_failure(f):
+            exc = f.exception()
+            if exc is not None:
+                print(f"[ray_tpu_torch] gang send of {oid.hex()[:12]} to "
+                      f"rank {dst_rank} failed: {exc!r}", file=sys.stderr,
+                      flush=True)
+
+        fut.add_done_callback(_log_failure)
+        return {"skeleton": serialization.dumps(skeleton), "descs": descs}
+
+    def _try_ici_fetch(self, meta: ObjectMeta) -> Optional[Any]:
+        """Device-plane get() between gang members: when the owner and we
+        are both members of one collective group, leaves ride the group
+        (NCCL between cards) instead of a host-staged snapshot. Returns
+        None when the route does not apply (the caller falls back to the
+        snapshot)."""
+        if meta.owner is None:
+            return None
+        mine = self._device_groups()
+        if not mine:
+            return None
+        from ray_tpu_torch.util.collective.dist_group import lookup_worker
+
+        info = lookup_worker(self, meta.owner.hex())
+        if not info or info.get("group") not in mine:
+            return None
+        group = mine[info["group"]]
+        src = info["rank"]
+        if src == group.rank:
+            return None
+        rep = self._call(self._direct_owner_request(
+            meta, "fetch_device_ici", object_id=meta.object_id.binary(),
+            group_name=info["group"], dst_rank=group.rank))
+        if rep is None:
+            return None
+        import torch
+        from torch.utils import _pytree
+
+        from ray_tpu_torch.core import device_transport as dt
+
+        def _recv_all():
+            out = [group.recv_device(tuple(d["shape"]),
+                                     getattr(torch, d["dtype"]), src)
+                   for d in rep["descs"]]
+            if group.device.type == "cuda":
+                torch.cuda.current_stream(group.device).synchronize()
+            return out
+
+        # a recv blocks until the peer sends: a peer that died between its
+        # reply and its send would hang this get() forever. Bound it with a
+        # DAEMON thread: on timeout the consumer surfaces ObjectLostError
+        # while the recv thread stays parked (the group is poisoned, as a
+        # dead NCCL communicator would be); daemon, so a parked thread never
+        # blocks interpreter exit.
+        timeout_s = _config.get("ici_fetch_timeout_s")
+        box: dict = {}
+        done = threading.Event()
+
+        def _runner():
+            try:
+                box["v"] = _recv_all()
+            except BaseException as e:  # noqa: BLE001 - marshalled to caller
+                box["e"] = e
+            finally:
+                done.set()
+
+        threading.Thread(target=_runner, daemon=True,
+                         name="gang-recv").start()
+        if not done.wait(timeout_s):
+            raise ObjectLostError(
+                f"device object {meta.object_id}: gang peer rank {src} "
+                f"never sent within {timeout_s}s (owner crashed "
+                f"mid-handoff?); group {info['group']!r} may be poisoned")
+        if "e" in box:
+            raise box["e"]
+        received = box["v"]
+        skeleton = serialization.loads(bytes(rep["skeleton"]))
+        return _pytree.tree_map(
+            lambda x: received[x.index] if isinstance(x, dt.IciLeaf) else x,
+            skeleton)
+
     def start(self, direct_handlers: Optional[dict] = None) -> None:
         direct_handlers = dict(direct_handlers or {})
+        direct_handlers.setdefault("fetch_device_object",
+                                   self._on_fetch_device_object)
+        direct_handlers.setdefault("fetch_device_ici",
+                                   self._on_fetch_device_ici)
         # tracker active BEFORE the loop can dispatch anything: a task or
         # actor __init__ processed during registration may construct
         # ObjectRefs, and every one of them must be counted (else the head
@@ -721,19 +936,87 @@ class CoreClient:
         return ObjectRef(oid)
 
     def put_device(self, value: Any) -> ObjectRef:
-        raise NotImplementedError(
-            "device objects wait for the port's device transport (ROADMAP "
-            "item 16)")
+        """Store a device-resident value (a CUDA tensor, or a tree holding
+        them) in THIS process's device store; only the meta travels.
+        Same-process get() returns the living object zero-copy;
+        cross-process get() fetches a snapshot from us (reference RDT
+        GPUObjectStore design)."""
+        from ray_tpu_torch.core import device_store as ds
+
+        oid = ObjectID.generate()
+        size = self.device_store.put(oid, value)
+        meta = ObjectMeta(oid, size, "device")
+        meta.node_id = self.node_id
+        meta.owner = self.worker_id
+        meta.inline = None
+        # whether the top level is a tensor ("torch"; the JAX package
+        # writes "jax" for a jax.Array)
+        meta.segment = "torch" if ds.is_device_value(value) else None
+        self.local_metas[oid] = meta
+        self._register_meta(meta)
+        return ObjectRef(oid)
 
     def store_device_result(self, oid: ObjectID, value: Any) -> ObjectMeta:
-        raise NotImplementedError(
-            "device results (tensor_transport) wait for the port's device "
-            "transport (ROADMAP item 16)")
+        """Actor-method result kept on device (tensor_transport option).
+
+        Registered with the head (unlike plain actor replies): the head's
+        refcount-driven free is what releases the value from our device
+        store; without it, every device result would pin device memory for
+        the actor's lifetime."""
+        from ray_tpu_torch.core import device_store as ds
+
+        size = self.device_store.put(oid, value)
+        meta = ObjectMeta(oid, size, "device")
+        meta.node_id = self.node_id
+        meta.owner = self.worker_id
+        meta.segment = "torch" if ds.is_device_value(value) else None
+        self.local_metas[oid] = meta
+        # non-blocking registration: this runs on the loop for async actor
+        # methods, where a blocking request would deadlock; the consumer
+        # gets the meta from the reply, the head entry only drives lifetime
+        self._registered.add(oid)
+        self.head_push("put_meta", meta=meta)
+        return meta
 
     def _get_device_value(self, meta: ObjectMeta) -> Any:
-        raise NotImplementedError(
-            f"device object {meta.object_id}: device fetches wait for the "
-            "port's device transport (ROADMAP item 16)")
+        """Resolve a kind=='device' meta: the living value when we own it;
+        between gang members, leaves ride the group; otherwise a
+        shm-snapshot read (zero-copy map same-node, chunked pull
+        cross-node)."""
+        oid = meta.object_id
+        if self.device_store.contains(oid):
+            return self.device_store.get(oid)
+        ici = self._try_ici_fetch(meta)
+        if ici is not None:
+            return ici
+        from ray_tpu_torch.core import device_transport
+
+        snap = self._call(self._fetch_device_async(meta))["meta"]
+        try:
+            return device_transport.load_snapshot(self.read_serialized(snap))
+        finally:
+            self.store.release(snap)   # every leaf was copied out
+
+    async def _direct_owner_request(self, meta: ObjectMeta, method: str,
+                                    **kwargs):
+        """RPC straight to the owning process's direct server."""
+        addr = await self.conn.request("worker_address",
+                                       worker_id=meta.owner.binary())
+        if addr is None:
+            raise ObjectLostError(
+                f"device object {meta.object_id} lost: owner process gone")
+        host, port = addr
+        conn = self._data_conns.get((host, port))
+        if conn is None or conn.closed:
+            conn = await protocol.connect(host, port, name=f"dev-{port}")
+            self._data_conns[(host, port)] = conn
+        return await conn.request(method, **kwargs)
+
+    async def _fetch_device_async(self, meta: ObjectMeta):
+        """Ask the owner to stage its snapshot; returns {"meta": snapshot
+        meta}; the bytes travel separately over the data plane."""
+        return await self._direct_owner_request(
+            meta, "fetch_device_object", object_id=meta.object_id.binary())
 
     def put_serialized(self, ser: SerializedObject, error: bool = False,
                        register: bool = True) -> ObjectMeta:
@@ -1197,7 +1480,17 @@ class CoreClient:
 
     async def _read_value_async(self, meta: ObjectMeta) -> Any:
         if meta.kind == "device":
-            return self._get_device_value(meta)
+            oid = meta.object_id
+            if self.device_store.contains(oid):
+                return self.device_store.get(oid)
+            from ray_tpu_torch.core import device_transport
+
+            snap = (await self._fetch_device_async(meta))["meta"]
+            try:
+                return device_transport.load_snapshot(
+                    await self.read_serialized_async(snap))
+            finally:
+                self.store.release(snap)   # every leaf was copied out
         return serialization.deserialize(
             await self.read_serialized_async(meta))
 

@@ -12,7 +12,12 @@ case:
   gets a CPU tensor of the same dtype and shape (bf16 stays 2-byte words:
   it has no numpy dtype, so the bytes travel as uint8, never widened). This
   is the counterpart of the JAX package's `jax.Array` lowering; zero-copy
-  device handoff is the device object store's job (ROADMAP item 16);
+  device handoff is the device object store's job (`device_store`);
+- under `device_snapshot=True` (a device object's shm snapshot,
+  `device_transport`) a tensor leaf is reduced through `_remat_leaf`
+  instead: its bytes out of band (a CUDA leaf's are copied from the card
+  straight into the store's range when the frame is written), and in band
+  only its shape, dtype and whether it came from CUDA;
 - the resulting (meta, buffers) pair maps directly onto a shared-memory
   segment: header + concatenated buffers, so readers reconstruct numpy
   arrays and tensors as zero-copy views onto shm.
@@ -88,6 +93,11 @@ class SerializedObject:
         put(self.meta)
         for b in self.buffers:
             put(b.nbytes.to_bytes(8, "little"))
+            if hasattr(b, "write_to"):
+                # a device leaf (device_transport.DeviceLeafBuffer): copied
+                # from the card straight into `out`, once
+                off += b.write_to(out[off:off + b.nbytes])
+                continue
             mv = memoryview(b)
             if not mv.contiguous:
                 mv = memoryview(bytes(mv))
@@ -173,15 +183,18 @@ class _Pickler(cloudpickle.Pickler):
             if obj.layout is not torch.strided or obj.is_quantized:
                 return super().reducer_override(obj)
             if self.device_snapshot:
-                raise NotImplementedError(
-                    "device snapshots of tensors wait for the port's device "
-                    "transport (ROADMAP item 16)")
+                from ray_tpu_torch.core.device_transport import reduce_leaf
+
+                return reduce_leaf(torch, obj, self.deferred)
             return _reduce_tensor(torch, obj)
         return super().reducer_override(obj)
 
     contained_refs: List = None  # set per instance in serialize()
     borrow_tokens: List = None
     device_snapshot: bool = False
+    # id(PickleBuffer) -> (PickleBuffer, DeviceLeafBuffer) for CUDA leaves
+    # of a device snapshot, swapped in by the buffer callback
+    deferred: dict = None
 
 
 # top-level bytes/bytearray get a marker meta + out-of-band buffer: pickle5's
@@ -198,9 +211,11 @@ def serialize(value: Any, device_snapshot: bool = False) -> SerializedObject:
     if type(value) is bytearray:
         return SerializedObject(_BYTEARRAY_META, [memoryview(value)])
     buffers: List[memoryview] = []
+    deferred: dict = {}
 
     def callback(pb: pickle.PickleBuffer):
-        buffers.append(pb.raw())
+        leaf = deferred.pop(id(pb), None)
+        buffers.append(pb.raw() if leaf is None else leaf[1])
         return False  # out-of-band
 
     sink = io.BytesIO()
@@ -208,6 +223,7 @@ def serialize(value: Any, device_snapshot: bool = False) -> SerializedObject:
     p.contained_refs = []
     p.borrow_tokens = []
     p.device_snapshot = device_snapshot
+    p.deferred = deferred
     p.dump(value)
     return SerializedObject(sink.getvalue(), buffers,
                             contained=p.contained_refs,

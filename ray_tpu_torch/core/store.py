@@ -119,7 +119,7 @@ class PendingObject:
             self.store.used -= self.size
         try:
             self._shm.close()
-            self._shm.unlink()
+            _unlink(self._shm)
         except (FileNotFoundError, BufferError):
             pass
 
@@ -133,6 +133,15 @@ def _unregister_tracker(shm: shared_memory.SharedMemory) -> None:
         resource_tracker.unregister(shm._name, "shared_memory")  # type: ignore[attr-defined]
     except Exception:
         pass
+
+
+def _unlink(shm: shared_memory.SharedMemory) -> None:
+    """`shm.unlink()` without its resource-tracker unregister: every segment
+    here was unregistered when made or attached (`_unregister_tracker`),
+    and a second unregister makes the tracker process print a KeyError."""
+    import _posixshmem
+
+    _posixshmem.shm_unlink(shm._name)  # type: ignore[attr-defined]
 
 
 class SharedMemoryStore:
@@ -437,6 +446,26 @@ class SharedMemoryStore:
             except BufferError:
                 pass  # live memoryviews still reference it; mapping stays
 
+    def release(self, meta: ObjectMeta) -> None:
+        """Drop this process's pin of an arena object it read through
+        `get_serialized` and no longer views (a no-op for other kinds)."""
+        if meta.kind == "arena":
+            arena = self._get_arena()
+            if arena is not None:
+                arena.release(meta.object_id.binary())
+
+    def delete_unregistered(self, meta: ObjectMeta) -> None:
+        """Free an object this process sealed without registering it with
+        the head (a device object's snapshot): no daemon tracks it, so an
+        arena entry is deleted here, pins and all."""
+        if meta.kind == "arena":
+            arena = self._get_arena()
+            if arena is not None:
+                arena.release(meta.object_id.binary())
+                arena.delete(meta.object_id.binary(), force=True)
+            return
+        self.free(meta)
+
     def free(self, meta: ObjectMeta) -> None:
         if meta.kind == "arena":
             arena = self._get_arena()
@@ -461,7 +490,7 @@ class SharedMemoryStore:
                 _unregister_tracker(shm)
             shm.close()
             try:
-                shm.unlink()
+                _unlink(shm)
             except FileNotFoundError:
                 pass
         elif meta.kind == "spilled" and meta.spill_path:
@@ -534,7 +563,7 @@ class SharedMemoryStore:
             try:
                 # independent of close(): a BufferError above must not leak
                 # the /dev/shm file for the machine's lifetime
-                shm.unlink()
+                _unlink(shm)
             except FileNotFoundError:
                 pass
             if meta is not None:
@@ -551,7 +580,7 @@ class SharedMemoryStore:
             for shm in self._segments.values():
                 shm.close()
                 try:
-                    shm.unlink()
+                    _unlink(shm)
                 except FileNotFoundError:
                     pass
             self._segments.clear()

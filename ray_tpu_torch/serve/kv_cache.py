@@ -89,6 +89,11 @@ class PagedKVCache:
             yield h, tuple(ids[n - B:n])
 
     # ------------------------------------------------------------- lookup
+    def recent_chain_hashes(self, n: int = 48) -> List[bytes]:
+        """The most-recently-touched pooled chain hashes (LRU tail): what
+        an engine advertises as its resident-prefix routing hint."""
+        return list(self._table)[-n:]
+
     def peek_prefix_len(self, ids: List[int]) -> int:
         """Cached-token count for `ids`' prefix without touching the LRU
         order or the hit/miss counters."""

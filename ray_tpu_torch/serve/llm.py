@@ -159,7 +159,14 @@ class LLMEngine:
 
     Weights come from `checkpoint` (a `gpt2.save_params` directory, either
     package's), from `params_override` (+ `cfg_override`), or from `seed`.
-    `weights_id` names them for prefix-store keys (`prefix_model_key`).
+    With `weight_store=True` (the default) a checkpoint is first looked up
+    on the cluster's weight plane (`serve/weight_store.py`: resolved from
+    the gossiped directory with zero head RPCs, streamed from peer
+    replicas), and an engine that paid the checkpoint read publishes its
+    params back; outside a runtime, or on any miss, the checkpoint is read.
+    `weights_source` says which ("p2p", "checkpoint", "override", "seed").
+    `weights_id` names the weights for prefix-store keys
+    (`prefix_model_key`).
     `device` defaults to CUDA and raises when there is none.
 
     `tensor_parallel_size=N > 1` is the JAX package's single-controller tp
@@ -188,7 +195,8 @@ class LLMEngine:
                  prefill_chunk_size: int = 16,
                  max_num_batched_tokens: Optional[int] = None,
                  params_override=None, cfg_override=None,
-                 weights_id: Optional[str] = None, device=None):
+                 weights_id: Optional[str] = None, device=None,
+                 weight_store: bool = True):
         from ray_tpu_torch.models import gpt2
 
         if scheduler not in ("continuous", "fixed"):
@@ -203,16 +211,47 @@ class LLMEngine:
             self.cfg = (cfg_override if cfg_override is not None
                         else gpt2.GPT2Config.preset(preset, **overrides))
             self.params = params_override
+            self.weights_source = "override"
         elif checkpoint:
             # architecture from the checkpoint sidecar, runtime knobs from
-            # the preset/overrides
+            # the preset/overrides. Cold start tries the weight plane
+            # first and degrades to the checkpoint-path read on any miss;
+            # the engine that pays the path read publishes the tree back,
+            # so the NEXT replica of this model pulls from peers
             base = gpt2.GPT2Config.preset(preset, **overrides)
-            self.params, self.cfg = gpt2.load_params(checkpoint, cfg=base,
-                                                     device=self.device)
+            self.params = None
+            t0 = time.perf_counter()
+            if weight_store:
+                from ray_tpu_torch.serve import weight_store as _ws
+
+                try:
+                    store = _ws.get_store()
+                    loaded = (store.load_params(checkpoint, base_cfg=base,
+                                                device=self.device)
+                              if store is not None else None)
+                except Exception:
+                    loaded = None   # never fail init on the store
+                if loaded is not None:
+                    self.params, self.cfg = loaded
+                    self.weights_source = "p2p"
+            if self.params is None:
+                self.params, self.cfg = gpt2.load_params(
+                    checkpoint, cfg=base, device=self.device)
+                self.weights_source = "checkpoint"
+            self.cold_start_s = time.perf_counter() - t0
+            if weight_store:
+                _ws.observe_cold_start(self.cold_start_s,
+                                       self.weights_source)
+                if self.weights_source == "checkpoint":
+                    _ws.maybe_publish_params_async(
+                        self.params, checkpoint,
+                        arch={k: getattr(self.cfg, k)
+                              for k in gpt2._CFG_FIELDS})
         else:
             self.cfg = gpt2.GPT2Config.preset(preset, **overrides)
             gen = torch.Generator().manual_seed(seed)
             self.params = gpt2.init_params(gen, self.cfg, self.device)
+            self.weights_source = "seed"
         # weight identity for prefix-store keys: engines whose KV is
         # interchangeable agree on it. LoRA engines pass the base's id; an
         # override without one gets a unique id, which never collides
@@ -761,6 +800,7 @@ class LLMEngine:
                         if self.ttft_count else 0.0)
             last_ttft = self.last_ttft_s
         return {"scheduler": self.scheduler,
+                "weights_source": self.weights_source,
                 "max_batch": self.max_batch,
                 "prefill_chunk_size": self.prefill_chunk_size,
                 "max_num_batched_tokens": self.max_num_batched_tokens,
@@ -782,41 +822,83 @@ class LLMEngine:
 class LLMServer:
     """Deployment callable: OpenAI-completions-shaped request handling.
 
-    `cluster_prefix_cache=True` (warm starts from prefixes computed by other
-    replicas) needs the cluster prefix store, which rides the object plane
-    and is not ported yet: it raises. Without it, as outside a cluster in
-    the JAX package, no request gets a prefix future and nothing is
-    published."""
+    `cluster_prefix_cache=True` joins the cluster prefix tier
+    (`serve/prefix_store.py`, keyed by the engine's `prefix_model_key`): a
+    request whose prompt another replica already prefilled warm-starts
+    from that replica's published KV blob, fetched in the background while
+    other lanes decode, and every completed prompt is published in turn.
+    Outside a runtime the store does nothing."""
 
     def __init__(self, preset: str = "gpt2-tiny", max_batch: int = 4,
                  max_seq_len: int = 128, model_overrides: Optional[dict] = None,
                  checkpoint: Optional[str] = None, tokenizer: Any = None,
                  cluster_prefix_cache: bool = False,
                  **engine_kwargs):
-        if cluster_prefix_cache:
-            raise NotImplementedError(
-                "cluster_prefix_cache needs the cluster prefix store on the "
-                "object plane, not yet ported (ROADMAP item 16)")
         self.engine = LLMEngine(preset=preset, max_batch=max_batch,
                                 max_seq_len=max_seq_len,
                                 model_overrides=model_overrides,
                                 checkpoint=checkpoint, tokenizer=tokenizer,
                                 **engine_kwargs)
+        # cluster prefix tier: any replica warm-starts from prefixes
+        # computed anywhere in the cluster
+        self.prefix_store = None
+        if cluster_prefix_cache and self.engine.kv is not None:
+            from ray_tpu_torch.serve import prefix_store as _ps
+
+            self.prefix_store = _ps.store_for_engine(self.engine)
+        self._prefix_pool = None
+        self._prefix_pool_lock = threading.Lock()
         self._chain_pool = None
         self._chain_pool_lock = threading.Lock()
         # distinguishes replicas when a caller aggregates stats() rows
         self.server_id = uuid.uuid4().hex[:12]
 
     # ------------------------------------------------- cluster prefix tier
+    def _prefix_submit(self, fn, *args):
+        with self._prefix_pool_lock:
+            if self._prefix_pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                self._prefix_pool = ThreadPoolExecutor(
+                    max_workers=2, thread_name_prefix="prefix-fetch")
+        return self._prefix_pool.submit(fn, *args)
+
     def _warm_start_future(self, eng: LLMEngine, ids: List[int],
                            tenant: str = "base"):
-        """The future of a prefix blob fetched from another replica, for
-        `generate(prefix_future=...)`; None without the cluster store."""
-        return None
+        """Residency-tier fall-through for one prompt: the engine's own
+        pool (no fetch wins below a block of gain) -> cluster store lookup
+        (zero RPCs, cached directory) -> a background data-plane fetch
+        whose future the engine imports while other lanes decode. Returns
+        the blob future, or None when nothing beats the local pool."""
+        store = self.prefix_store
+        if store is None or eng.kv is None or len(ids) < 2:
+            return None
+        need = ids[:-1]
+        covered = eng.kv.peek_prefix_len(need)
+        if len(need) - covered < eng.kv.block_size:
+            return None
+        hit = store.lookup(need, tenant=tenant)
+        if hit is None or hit["n"] <= covered:
+            return None
+        return self._prefix_submit(store.fetch, hit, tenant)
 
     def _publish_prefix(self, eng: LLMEngine, ids: List[int]) -> None:
-        """Announce a served prompt's pooled blocks to the cluster store (a
-        no-op without it)."""
+        """After a completed generation the prompt's blocks are pooled:
+        announce them so any OTHER replica can warm-start (shared prefixes
+        are stored once cluster-wide). Runs on the prefix executor: the
+        export's device-to-host copy, seal and announce are not charged to
+        the response."""
+        store = self.prefix_store
+        if store is None or eng.kv is None or len(ids) < 2:
+            return
+        self._prefix_submit(self._publish_prefix_sync, store, eng, ids)
+
+    @staticmethod
+    def _publish_prefix_sync(store, eng: LLMEngine, ids: List[int]) -> None:
+        try:
+            store.maybe_publish(eng.kv, ids[:-1], exporter=eng.export_pooled)
+        except Exception:
+            pass   # publication is an optimization, never a failure path
 
     def _request_ids(self, eng: LLMEngine, body: dict,
                      prompt: str = "") -> List[int]:
@@ -877,6 +959,8 @@ class LLMServer:
         out["server_id"] = self.server_id
         if self.engine.kv is not None:
             out["kv_cache"] = self.engine.kv.stats()
+        if self.prefix_store is not None:
+            out["prefix_store"] = self.prefix_store.stats()
         return out
 
     def check_health(self):
@@ -885,8 +969,9 @@ class LLMServer:
 
     def shutdown(self):
         self.engine.shutdown()
-        if self._chain_pool is not None:
-            self._chain_pool.shutdown(wait=True)
+        for pool in (self._chain_pool, self._prefix_pool):
+            if pool is not None:
+                pool.shutdown(wait=True)
 
 
 class OpenAIServer(LLMServer):
@@ -949,9 +1034,29 @@ class OpenAIServer(LLMServer):
 
     def _build_lora_engine(self, adapter_id: str) -> LLMEngine:
         from ray_tpu_torch.models.gpt2 import apply_lora, load_lora_npz
+        from ray_tpu_torch.serve import weight_store as _ws
         from ray_tpu_torch.utils import fs
 
-        adapter = load_lora_npz(fs.join(self.lora_root, f"{adapter_id}.npz"))
+        # hot-swap path: adapter deltas are weight-plane objects. The
+        # first replica to load an adapter publishes it; every later one
+        # pulls it P2P instead of touching lora_root (the same bytes, so
+        # the same merge). A miss falls back to the npz, then publishes.
+        adapter = None
+        store = _ws.get_store()
+        akey = _ws.adapter_store_key(self.engine.weights_id, adapter_id)
+        if store is not None:
+            try:
+                adapter = store.fetch_adapter(akey, tenant=adapter_id)
+            except Exception:
+                adapter = None
+        if adapter is None:
+            adapter = load_lora_npz(fs.join(self.lora_root,
+                                            f"{adapter_id}.npz"))
+            if store is not None:
+                try:
+                    store.publish_adapter(akey, adapter)
+                except Exception:
+                    pass
         merged = apply_lora(self.engine.params, adapter)
         kwargs = dict(self._engine_kwargs)
         kwargs.pop("checkpoint", None)

@@ -2,7 +2,9 @@
 
 The same module functions: named groups, ranks, and the ops `allreduce` …
 `synchronize`, each counted in `hierarchy.BYTES` at the world hop as the JAX
-package's `collective_bytes_total` counts it. A group here is a
+package's `collective_bytes_total` counts it. A `kv` group is the JAX
+package's `KVCollectiveGroup` (`kv_group.py`): collectives carried by the
+head's KV and the shm store, inside the runtime. Any other group is a
 `DistCollectiveGroup` (`nccl` or `gloo`) whose members meet through a torch
 `Store`, in one of two ways:
 
@@ -16,9 +18,7 @@ package's `collective_bytes_total` counts it. A group here is a
   ``cuda:{local rank}`` (its rank among the members on its host): a fresh
   actor's current device is 0, and two members of one host would collide.
 
-The JAX package's `kv` group (collectives carried by the head's KV) has no
-counterpart: members meet through the KV here and then run gloo or NCCL.
-The reshard functions wait for item 5, the ops' tracing spans for item 23.
+The ops' tracing spans wait for item 23.
 """
 
 from __future__ import annotations
@@ -38,9 +38,10 @@ from ray_tpu_torch.util.collective.dist_group import (DistCollectiveGroup,
                                                       lookup_membership,
                                                       open_store)
 from ray_tpu_torch.util.collective.hierarchy import account_collective
+from ray_tpu_torch.util.collective.kv_group import KVCollectiveGroup
 from ray_tpu_torch.util.collective.types import Backend, ReduceOp
 
-_groups: Dict[str, DistCollectiveGroup] = {}
+_groups: Dict[str, "DistCollectiveGroup | KVCollectiveGroup"] = {}
 _generations: Dict[str, int] = {}
 # the store key of each group met through the runtime ("" when imperative,
 # the declaration's key when attached)
@@ -76,8 +77,16 @@ def init_collective_group(world_size: int, rank: int, backend: str = "gloo",
 
 
 def _make_group(backend, group_name, world_size, rank, store,
-                timeout_s, key: str = "") -> DistCollectiveGroup:
+                timeout_s, key: str = ""):
     generation = _generations.get(group_name, 0)
+    if Backend(backend) == Backend.KV:
+        client = _client()
+        if client is None or store is not None:
+            raise ValueError(
+                "a 'kv' group runs over the runtime's head KV: call it "
+                "inside ray_tpu_torch.init and without store=")
+        return KVCollectiveGroup(client, group_name, world_size, rank,
+                                 incarnation=f"{generation}.{key}")
     if store is None:
         store = _runtime_store(backend, group_name, generation, world_size,
                                rank, timeout_s, key)
@@ -183,7 +192,7 @@ def _lazy_attach(group_name: str) -> Optional[DistCollectiveGroup]:
     return group
 
 
-def get_group(group_name: str = "default") -> DistCollectiveGroup:
+def get_group(group_name: str = "default"):
     """The live group object, for what the module functions don't expose
     (allreduce_device, allreduce_tree, topology); a member actor of a
     group declared by create_collective_group attaches here."""
@@ -210,7 +219,8 @@ def rebuild_collective_group(world_size: int, rank: int,
         old = _groups.pop(group_name, None)
         if old is not None:
             old.destroy()
-            store = store if store is not None else old._base_store
+            if store is None and not isinstance(old, KVCollectiveGroup):
+                store = old._base_store
         _generations[group_name] = _generations.get(group_name, 0) + 1
         _groups[group_name] = _make_group(backend, group_name, world_size,
                                           rank, store, timeout_s)
@@ -229,7 +239,12 @@ def destroy_collective_group(group_name: str = "default") -> None:
         group = _groups.pop(group_name, None)
         key = _runtime_keys.pop(group_name, None)
         client = _client()
-        if group is not None:
+        if isinstance(group, KVCollectiveGroup):
+            group.destroy()
+            # a later group of this name is a new incarnation, whose keys
+            # never meet this one's
+            _generations[group_name] = _generations.get(group_name, 0) + 1
+        elif group is not None:
             group.destroy()
             if key is not None and group.rank == 0:
                 client.kv_del(_STORE_NS, _store_key(

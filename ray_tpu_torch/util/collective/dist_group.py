@@ -17,6 +17,12 @@ process per device is torch's idiom, so a member is one rank.
   (`lookup_membership` reads one back); `allreduce_device` groups the gang
   into hosts x local members with `hierarchy.infer_topology` and makes the
   two subgroups of the two-level schedule on first use.
+- Inside the runtime a member also publishes worker id -> {group, rank,
+  world, host} in the head's KV, as the JAX package's `xla-multihost`
+  group does (`lookup_worker` reads it): the device object store then
+  moves a device object between two members of one group over the group
+  itself (`send_device`/`recv_device`: NCCL between cards) instead of a
+  host snapshot.
 - A dead peer is noticed by the backend's own timeout (`timeout_s`, gloo;
   NCCL's watchdog), not by a per-call deadline.
 - `nccl` on a host without CUDA raises here; it never turns into gloo.
@@ -26,6 +32,7 @@ from __future__ import annotations
 
 import datetime
 import json
+import pickle
 import threading
 from typing import Dict, List, Optional
 
@@ -60,8 +67,23 @@ def open_store(spec, world_size: int, rank: int,
     return dist.FileStore(spec.removeprefix("file://"), world_size)
 
 
+# head KV namespace of worker id -> membership (the JAX package's
+# `xla_multihost._MEMBER_NS` keeps the same records)
+_MEMBER_NS = "collective_members"
+
+
+def _runtime_client():
+    """The runtime's client in this process, or None outside it."""
+    from ray_tpu_torch.core import api
+
+    return api._client
+
+
 class DistCollectiveGroup:
     """One member process of a cross-process collective gang."""
+
+    # the device object store may move device objects over this group
+    device_plane = True
 
     def __init__(self, store: dist.Store, group_name: str, world_size: int,
                  rank: int, backend: str = "gloo", generation: int = 0,
@@ -101,10 +123,14 @@ class DistCollectiveGroup:
     def _publish_membership(self) -> None:
         local = (torch.cuda.device_count()
                  if self.backend_name == Backend.NCCL else 1)
-        self.store.set(f"members/{self.rank}", json.dumps(
-            {"group": self.group_name, "rank": self.rank,
-             "world": self.world_size, "host": _hier.host_id(),
-             "local_devices": local}))
+        record = {"group": self.group_name, "rank": self.rank,
+                  "world": self.world_size, "host": _hier.host_id(),
+                  "local_devices": local}
+        self.store.set(f"members/{self.rank}", json.dumps(record))
+        client = _runtime_client()
+        if client is not None:
+            client.kv_put(_MEMBER_NS, client.worker_id.hex().encode(),
+                          pickle.dumps(record), overwrite=True)
 
     def members(self) -> List[dict]:
         """Every member's record (waits until all have published)."""
@@ -320,6 +346,9 @@ class DistCollectiveGroup:
         """Withdraw the membership record; NCCL communicators are shut
         down (gloo's close when the group is collected)."""
         self.store.delete_key(f"members/{self.rank}")
+        client = _runtime_client()
+        if client is not None:
+            client.kv_del(_MEMBER_NS, client.worker_id.hex().encode())
         self._ef_state.clear()
         if self.backend_name == Backend.NCCL:
             g = self._hier_groups
@@ -338,4 +367,13 @@ def lookup_membership(store: dist.Store, rank: int,
     return json.loads(store.get(key))
 
 
-__all__ = ["DistCollectiveGroup", "lookup_membership", "open_store"]
+def lookup_worker(client, worker_id_hex: str) -> Optional[dict]:
+    """Head-KV lookup: the membership record of worker `worker_id_hex`
+    ({group, rank, world, host, local_devices}), or None. The device object
+    store reads it to pick the gang route between two members."""
+    blob = client.kv_get(_MEMBER_NS, worker_id_hex.encode())
+    return pickle.loads(blob) if blob else None
+
+
+__all__ = ["DistCollectiveGroup", "lookup_membership", "lookup_worker",
+           "open_store"]

@@ -58,8 +58,10 @@ def _bits(x) -> bytes:
 def test_backend_and_reduce_op_spellings():
     for name in ("nccl", "xla", "ici", "tpu", "xla-multihost", "XLA"):
         assert col.Backend(name) == col.Backend.NCCL == "nccl"
-    for name in ("gloo", "kv", "torch_gloo", "cpu"):
+    for name in ("gloo", "torch_gloo", "cpu"):
         assert col.Backend(name) == col.Backend.GLOO == "gloo"
+    # the JAX package's head-KV group, not an alias of torch's gloo
+    assert col.Backend("kv") == col.Backend.KV == "kv"
     with pytest.raises(ValueError, match="MPI"):
         col.Backend("mpi")
     with pytest.raises(ValueError, match="unknown"):

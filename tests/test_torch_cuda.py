@@ -751,6 +751,105 @@ def test_runtime_nccl_actor_group_across_cards(cuda):
 
 
 @pytest.mark.cuda
+def test_gang_device_fetch_across_cards(cuda):
+    # two num_gpus=1 actors in an NCCL group made by create_collective_group:
+    # one put_devices a dict of CUDA tensors (f32 and bf16), a host tensor
+    # and a string, the other gets it: the CUDA leaves arrive on the
+    # getter's own card over NCCL (nothing staged through the host, no
+    # snapshot staged by the owner), bit-equal; with the owner's sends
+    # dropped (the chaos hook), the get raises ObjectLostError within
+    # ici_fetch_timeout_s instead of hanging
+    import ray_tpu_torch as rt
+
+    from ray_tpu_torch.util.collective import collective as col
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: NCCL refuses two ranks on one")
+
+    class Member:
+        def join(self):
+            from ray_tpu_torch.util.collective import collective as c
+
+            c.get_group("gang")   # attaches: takes this member's card
+            return torch.cuda.current_device()
+
+        def put(self):
+            dev = torch.device("cuda", torch.cuda.current_device())
+            g = torch.Generator(device=dev).manual_seed(5)
+            self.value = {
+                "w": torch.randn((64, 1024), generator=g, device=dev),
+                "b": torch.randn((4096,), generator=g, device=dev).to(
+                    torch.bfloat16),
+                "host": torch.arange(10), "tag": "owner"}
+            self._ref = rt.put_device(self.value)
+            return self._ref.hex(), self.digests(self.value)
+
+        @staticmethod
+        def digests(value):
+            return {k: (v.cpu().contiguous().view(-1).view(torch.uint8)
+                        .numpy().tobytes() if isinstance(v, torch.Tensor)
+                        else v) for k, v in value.items()}
+
+        def get(self, hex_id, timeout_s=None):
+            import time as _time
+
+            from ray_tpu_torch.core import config as _config
+            from ray_tpu_torch.core.exceptions import ObjectLostError
+            from ray_tpu_torch.core.ids import ObjectID
+            from ray_tpu_torch.core.object_ref import ObjectRef
+
+            if timeout_s is not None:
+                _config.GLOBAL.set("ici_fetch_timeout_s", timeout_s)
+            t0 = _time.monotonic()
+            try:
+                val = rt.get(ObjectRef(ObjectID.from_hex(hex_id)),
+                             timeout=300)
+            except ObjectLostError as e:
+                return {"lost": repr(e), "s": _time.monotonic() - t0}
+            return {"devices": {k: str(v.device) for k, v in val.items()
+                                if isinstance(v, torch.Tensor)},
+                    "mine": f"cuda:{torch.cuda.current_device()}",
+                    "digests": self.digests(val)}
+
+        def drop_sends(self):
+            from ray_tpu_torch.core import config as _config
+
+            _config.GLOBAL.set("testing_ici_drop_send", True)
+            return True
+
+        def staged(self):
+            from ray_tpu_torch.core import device_transport as dt
+            from ray_tpu_torch.core.api import _global_client
+            from ray_tpu_torch.util.collective._comm import HOST_STAGED
+
+            return (dt.STATS["snapshots_staged"],
+                    len(_global_client()._device_snapshots),
+                    HOST_STAGED["bytes"])
+
+    try:
+        rt.init(num_cpus=2)
+        a, b = [rt.remote(num_gpus=1)(Member).remote() for _ in range(2)]
+        col.create_collective_group([a, b], 2, [0, 1], backend="nccl",
+                                    group_name="gang")
+        cards = rt.get([a.join.remote(), b.join.remote()], timeout=300)
+        hex_id, want = rt.get(a.put.remote(), timeout=120)
+        got = rt.get(b.get.remote(hex_id), timeout=300)
+        staged = rt.get([a.staged.remote(), b.staged.remote()], timeout=60)
+        assert rt.get(a.drop_sends.remote(), timeout=60)
+        lost = rt.get(b.get.remote(hex_id, 10.0), timeout=300)
+    finally:
+        rt.shutdown()
+    assert sorted(cards) == [0, 1]
+    assert set(got["devices"]) == {"w", "b", "host"}
+    assert got["devices"]["w"] == got["devices"]["b"] == got["mine"]
+    assert got["devices"]["host"] == "cpu"
+    assert got["digests"] == want
+    assert staged == [(0, 0, 0), (0, 0, 0)], staged
+    assert "never sent within 10.0s" in lost.get("lost", ""), lost
+    assert lost["s"] < 30
+
+
+@pytest.mark.cuda
 def test_multinode_across_cards(cuda):
     # a head with no GPU and two node daemons naming two cards each
     # (CUDA_VISIBLE_DEVICES "0,1" and "2,3", num_gpus=2): a STRICT_SPREAD

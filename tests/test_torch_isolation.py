@@ -66,7 +66,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
 # every module of the runtime (its `__main__` guards keep the imports free
 # of side effects)
 CORE = tuple(f"ray_tpu_torch.core.{m}" for m in (
-    "api", "client", "config", "exceptions", "flight_recorder",
+    "api", "client", "config", "device_store", "device_transport",
+    "exceptions", "flight_recorder",
     "function_manager", "gcs", "head_main", "ids", "job_manager",
     "memory_monitor", "native_store", "object_directory", "object_ref",
     "object_transfer", "placement_group", "protocol", "refcount",

@@ -356,13 +356,35 @@ def test_batch_call_order_and_isolation(base_pair):
     assert steps < generated    # the items shared steps
 
 
-def test_cluster_prefix_cache_not_ported():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        PS.LLMServer(preset="gpt2-tiny", cluster_prefix_cache=True,
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        PS.OpenAIServer(preset="gpt2-tiny", cluster_prefix_cache=True,
-                        device="cpu")
+def test_cluster_prefix_cache_keys_the_store_by_the_base_model(checkpoint,
+                                                               lora_root):
+    """`cluster_prefix_cache=True` gives LLMServer and OpenAIServer a
+    prefix store keyed by the base model (the engine's prefix_model_key,
+    the JAX package's string for the same engine); an adapter engine keeps
+    the base's key. Outside a runtime the store publishes nothing."""
+    kw = dict(checkpoint=checkpoint, max_seq_len=96, max_batch=2,
+              kv_blocks=16, kv_block_size=8, cluster_prefix_cache=True)
+    llm = PS.LLMServer(device="cpu", **kw)
+    oai = PS.OpenAIServer(model_id="tiny", lora_root=lora_root,
+                          device="cpu", **kw)
+    jsrv = JS.LLMServer(**kw)
+    try:
+        for srv in (llm, oai):
+            assert srv.prefix_store is not None
+            assert srv.prefix_store.model_key == \
+                srv.engine.prefix_model_key == \
+                jsrv.prefix_store.model_key
+            assert srv.prefix_store.block_size == 8
+        body = {"prompt_ids": list(range(1, 30)), "max_tokens": 2}
+        llm(body)
+        assert llm.stats()["prefix_store"]["published"] == 0
+        oai({**body, "model": f"tiny:{ADAPTERS[0]}"})
+        assert oai._lora_engines[ADAPTERS[0]].prefix_model_key == \
+            oai.prefix_store.model_key
+    finally:
+        llm.shutdown()
+        oai.shutdown()
+        jsrv.engine.shutdown()
 
 
 # -------------------------------------------------------------- HFTokenizer
