@@ -159,6 +159,28 @@ Phases, each reported on its own line:
    served: one store hit, every whole 16-token block of len-1 covered,
    fewer prefill steps than R1's, R1's tokens, no head RPC on the warm
    path, TTFT of both.
+17. compiled DAGs and the channel-driven 1F1B pipeline (phase_compiled),
+   the runtime advertising 4 GPUs on the one card: (a) GPT-2-125M as a
+   compiled DAG of two num_gpus=1 actors (A: the embedding and blocks
+   0-5, its output a device object; B: blocks 6-11 and the unembedding),
+   B=4 T=1024, 21 iterations: every result (each row's next-token logits
+   and each position's f32 sum of its logits) bit-equal to this process's
+   forward on the same weights, K1 6 an iteration in each actor's own
+   process, A's device store at most 2 after teardown, no ring left; the
+   median iteration against the same chain by chained .remote calls; (b)
+   the 1F1B pipeline of four ChannelPipelineStage actors of 3 blocks
+   (num_gpus=1 each; the first embeds, the last unembeds with its own
+   copy of wte and takes the cross-entropy), B=8 T=1024 in 4
+   microbatches, device edges: one eager step (eager_pipeline_step),
+   three compiled (CompiledPipeline), one eager again, each loss within
+   0.01 of the same full-batch SGD steps in this process, every param
+   within PP_PARAM_SHARE of its largest update there, K1/K2/K3 a step in
+   each stage's process exactly as the code gives them (24/12/12 on
+   stages 0-2, 12/12/12 on the last), every ring and device object gone
+   after close; step ms and the card's busy share (nvidia-smi).
+   Across four cards, tests/test_torch_cuda.py::
+   test_compiled_pipeline_across_cards runs (b)'s pipeline a stage a card
+   (compiled_pp_cards), every ring crossing nodes.
 Phase 10 also runs the ring at a ragged chunk (Llama-3-8B widths,
 T=16000 on sp=4: chunks of 4000 padded to 4096, the padded keys masked by
 K1's and K2's kv_len) and holds each padded chunk pair against the plain
@@ -180,7 +202,7 @@ that expansion. Phases 4-5 (GPT-2 inference), 5b (the OpenAI server), 6
 (GPT-2 training), 6b's (b) (data-parallel training), 6c's (a) and (c)
 (sharded training), 7, 8, 9, each case of 10, 11, 12 and 13's (b) are
 the main paths: every kernel's launch count is set to 0 before each and read right
-after; in phases 14-16 each actor or task counts its own launches from 0. The line before the last lists the kernels as JSON, with the GPT-2
+after; in phases 14-17 each actor or task counts its own launches from 0. The line before the last lists the kernels as JSON, with the GPT-2
 training path's counts under "launches", every path's under
 "launches_by_path", the ring's non-causal chunk pair under "ring_chunk",
 its ragged one under "ring_ragged_chunk" and the head dim 80 case under
@@ -196,6 +218,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -4273,6 +4296,532 @@ def phase_objects(card: str) -> dict:
                     raise AssertionError("the cluster leaked")
 
 
+# ------------------------------ phase 17: compiled DAGs and the 1F1B pipeline
+# (a) a compiled DAG of two num_gpus=1 actors on one node: A runs the
+# embedding and blocks 0-5 (its output a device object), B blocks 6-11
+# and the unembedding; (b) the host-level 1F1B pipeline of four
+# ChannelPipelineStage actors of 3 blocks each, joined by rings with device
+# edges. The runtime advertises 4 GPUs on the one card. Each actor counts
+# its own launches from 0.
+COMPILED_ITERS = 20
+PP_ACTORS = 4
+PP_B = 8
+PP_MB = 4
+PP_LR = 0.05
+PP_CAPACITY = 16 << 20   # above one microbatch's f32 activation, 6.29 MB
+PP_COMPILED_STEPS = 3
+# (b)'s params after its steps against the in-process run's: each leaf's
+# largest gap within this share of its largest update in the in-process
+# run (bf16 activations, microbatched against full-batch sums)
+PP_PARAM_SHARE = 0.1
+
+
+def _stage_params(params, n_stages: int) -> list:
+    """GPT-2's params -> one untied tree a stage, on the CPU: the first
+    stage holds wte and wpe, the last ln_f and its own copy of wte (GPT-2
+    ties them; across actors each stage updates its own copy), each its
+    share of the stacked blocks."""
+    from ray_tpu_torch.utils.tree import tree_map
+
+    L = params["blocks"]["attn"]["wqkv"].shape[0]
+    per = L // n_stages
+    out = []
+    for s in range(n_stages):
+        tree = {"blocks": tree_map(
+            lambda a: a[s * per:(s + 1) * per].detach().cpu().clone(),
+            params["blocks"])}
+        if s == 0:
+            tree["wte"] = params["wte"].detach().cpu().clone()
+            tree["wpe"] = params["wpe"].detach().cpu().clone()
+        if s == n_stages - 1:
+            tree["ln_f"] = tree_map(lambda a: a.detach().cpu().clone(),
+                                    params["ln_f"])
+            tree["wte"] = params["wte"].detach().cpu().clone()
+        out.append(tree)
+    return out
+
+
+def _gpt_stage_fn(cfg, pos: int, n_stages: int):
+    """Stage `pos` of `n_stages` from models.gpt2: `embed` on the first,
+    its blocks by `_block`, `unembed` on the last."""
+    def fn(p, x):
+        if pos == 0:
+            x = gpt2.embed(p, x, cfg)
+        for bp in gpt2._layers(p["blocks"]):
+            x = gpt2._block(x, bp, cfg)
+        if pos == n_stages - 1:
+            x = gpt2.unembed(p, x, cfg)
+        return x
+    return fn
+
+
+def _ce(logits, targets):
+    from ray_tpu_torch.models import lm
+
+    return lm.cross_entropy(logits, targets)
+
+
+def _logits_out(logits) -> dict:
+    """What (a) returns: the next-token logits of every row, and each
+    position's f32 sum of its logits (a fingerprint of the whole [B, T,
+    V] output)."""
+    return {"last": logits[:, -1].cpu(),
+            "sums": logits.float().sum(-1).cpu()}
+
+
+class DagHalf:
+    """(a)'s actor: one half of GPT-2-125M on its card."""
+
+    def __init__(self, fn, params):
+        from ray_tpu_torch.utils.tree import tree_map
+
+        _no_tf32()
+        self.fn = fn
+        self.params = tree_map(lambda t: t.to(DEVICE), params)
+
+    @ray_tpu_torch.method(tensor_transport="device")
+    def hidden(self, tokens):
+        with torch.no_grad():
+            return self.fn(self.params, tokens.to(DEVICE))
+
+    def head(self, x) -> dict:
+        with torch.no_grad():
+            return _logits_out(self.fn(self.params, x.to(DEVICE)))
+
+    def zero(self) -> int:
+        _zero_counts()
+        return os.getpid()
+
+    def counts(self) -> tuple:
+        return _flash_counts()
+
+    def store_len(self) -> int:
+        from ray_tpu_torch.core.api import _global_client
+
+        return len(_global_client().device_store)
+
+
+def _pp_stage_class():
+    """ChannelPipelineStage with the launch counts of its own process and
+    the state of its device objects readable (the class the actors run;
+    CompiledPipeline.build_stages makes the plain one)."""
+    from ray_tpu_torch.parallel.pipeline import ChannelPipelineStage
+
+    class CountedStage(ChannelPipelineStage):
+        def __init__(self, *args, **kwargs):
+            _no_tf32()
+            super().__init__(*args, **kwargs)
+
+        def zero(self) -> int:
+            _zero_counts()
+            return os.getpid()
+
+        def counts(self) -> tuple:
+            return _flash_counts()
+
+        def card(self) -> str:
+            """The uuid of the card this stage's process computes on."""
+            if torch.device(DEVICE).type != "cuda":
+                return "cpu"
+            return str(torch.cuda.get_device_properties(
+                torch.cuda.current_device()).uuid)
+
+        def device_objects(self) -> tuple:
+            """(entries in this process's device store, snapshots it has
+            staged and still holds)."""
+            from ray_tpu_torch.core.api import _global_client
+
+            client = _global_client()
+            return len(client.device_store), len(client._device_snapshots)
+
+    return CountedStage
+
+
+def _pp_launches(cfg, n_stages: int, M: int) -> list:
+    """K1/K2/K3 launches a step in each stage's process, from the code:
+    a non-last stage forwards each microbatch under no_grad (K1 a block)
+    and runs it again under autograd in its backward (K1, then K2 and K3
+    a block); the last stage's loss and gradients run each block once
+    under autograd (K1, K2, K3)."""
+    per = cfg.n_layer // n_stages
+    return [((2 if s < n_stages - 1 else 1) * per * M, per * M, per * M)
+            for s in range(n_stages)]
+
+
+def _wait_devices_empty(stages, rt) -> list:
+    deadline = time.perf_counter() + 60
+    while True:
+        left = rt.get([s.device_objects.remote() for s in stages],
+                      timeout=60)
+        if all(n == (0, 0) for n in left) \
+                or time.perf_counter() > deadline:
+            return left
+        time.sleep(0.2)
+
+
+def _util_sampler():
+    """nvidia-smi's utilization.gpu every 100 ms (the share of each sample
+    period in which a kernel ran on the card) until stopped: returns
+    (stop() -> list of samples)."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+
+    def stop() -> list:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+        return [int(x) for x in out.split() if x.strip().isdigit()]
+
+    return stop
+
+
+def _compiled_dag(rt, card, cfg, params) -> dict:
+    """(a): returns its launches."""
+    from ray_tpu_torch.dag import InputNode
+
+    halves = _stage_params(params, 2)
+    fns = [_gpt_stage_fn(cfg, i, 2) for i in range(2)]
+    tokens = torch.randint(0, cfg.vocab_size, (FORWARD_B, SEQ),
+                           generator=torch.Generator().manual_seed(17))
+    with torch.no_grad():
+        want = _logits_out(gpt2.forward(params, tokens.to(DEVICE), cfg))
+    Half = rt.remote(num_gpus=1)(DagHalf)
+    a, b = Half.remote(fns[0], halves[0]), Half.remote(fns[1], halves[1])
+    pids = rt.get([a.zero.remote(), b.zero.remote()], timeout=RUNTIME_SPAWN_S)
+    with InputNode() as inp:
+        dag = b.head.bind(a.hidden.bind(inp))
+    cdag = dag.experimental_compile(channel_capacity=PP_CAPACITY)
+    secs = []
+    try:
+        t0 = time.perf_counter()
+        first = cdag.execute(tokens).get(timeout=RUNTIME_SPAWN_S)
+        bring_up = time.perf_counter() - t0
+        outs = [first]
+        for _ in range(COMPILED_ITERS):
+            t0 = time.perf_counter()
+            outs.append(cdag.execute(tokens).get(timeout=120))
+            secs.append(time.perf_counter() - t0)
+    finally:
+        cdag.teardown()
+    iters = COMPILED_ITERS + 1
+    counts = rt.get([a.counts.remote(), b.counts.remote()], timeout=60)
+    rings = [n for n in cdag.chan_names.values()
+             if os.path.exists(f"/dev/shm/{n}")]
+    deadline = time.perf_counter() + 30
+    while (held := rt.get(a.store_len.remote(), timeout=60)) > 2 \
+            and time.perf_counter() < deadline:
+        time.sleep(0.2)
+    equal = [torch.equal(o["last"], want["last"].cpu())
+             and torch.equal(o["sums"], want["sums"].cpu()) for o in outs]
+    # the same chain by chained actor calls (the device object passed on)
+    rt.get([a.zero.remote(), b.zero.remote()], timeout=60)
+    chained = []
+    for _ in range(COMPILED_ITERS):
+        t0 = time.perf_counter()
+        out = rt.get(b.head.remote(a.hidden.remote(tokens)), timeout=120)
+        chained.append(time.perf_counter() - t0)
+    chained_equal = torch.equal(out["last"], want["last"].cpu())
+    chained_counts = rt.get([a.counts.remote(), b.counts.remote()],
+                            timeout=60)
+    for h in (a, b):
+        rt.kill(h)
+    compiled_ms = 1e3 * statistics.median(secs)
+    chained_ms = 1e3 * statistics.median(chained)
+    want_each = (cfg.n_layer // 2 * iters, 0, 0)
+    log(f"[compiled] (a) {PRESET} in 2 num_gpus=1 actors (pids {pids}), B="
+        f"{FORWARD_B} T={SEQ}: bring-up and first iteration {bring_up:.2f} "
+        f"s; median iteration {compiled_ms:.2f} ms compiled against "
+        f"{chained_ms:.2f} ms by chained .remote calls ({COMPILED_ITERS} "
+        f"each, {card}); results bit-equal to this process's forward: "
+        f"{sum(equal)}/{len(equal)} compiled, chained {chained_equal}; "
+        f"K1/K2/K3 in A and B over {iters} iterations {counts} (want "
+        f"{want_each} each), chained {chained_counts}; A's device "
+        f"store after teardown {held}; rings left {rings}")
+    if not all(equal) or not chained_equal:
+        raise AssertionError("(a): the compiled DAG's logits differ from "
+                             "the one-process forward")
+    for who, c in zip("AB", counts):
+        _runtime_launch_check(f"(a) actor {who}", c, want_each)
+    if held > 2:
+        raise AssertionError(f"(a): A's device store holds {held} > 2")
+    if rings:
+        raise AssertionError(f"(a): rings left after teardown: {rings}")
+    return {f"{PRESET} compiled DAG (2 actors)": tuple(
+        sum(c[i] for c in counts) for i in range(3))}
+
+
+def _pp_reference(cfg, stage_params, x, y, steps: int) -> tuple:
+    """The same full-batch SGD steps in this process on the card, over the
+    same untied stage functions: (losses, the params after the steps)."""
+    from ray_tpu_torch.utils.tree import leaves, tree_map
+
+    n = len(stage_params)
+    fns = [_gpt_stage_fn(cfg, i, n) for i in range(n)]
+    params = [tree_map(lambda t: t.to(DEVICE), p) for p in stage_params]
+    x, y = x.to(DEVICE), y.to(DEVICE)
+    losses = []
+    for _ in range(steps):
+        leafs = [tree_map(lambda t: t.detach().requires_grad_(True), p)
+                 for p in params]
+        h = x
+        for fn, p in zip(fns, leafs):
+            h = fn(p, h)
+        loss = _ce(h, y)
+        flat = [t for p in leafs for t in leaves(p)]
+        grads = iter(torch.autograd.grad(loss, flat))
+        params = [tree_map(lambda t: (t - PP_LR * next(grads)).detach(), p)
+                  for p in leafs]
+        losses.append(float(loss.detach()))
+    return losses, [tree_map(lambda t: t.float().cpu().numpy(), p)
+                    for p in params]
+
+
+def _pipeline_run(rt, card, cfg, params) -> dict:
+    """(b): returns its launches."""
+    from ray_tpu_torch.parallel.pipeline import (CompiledPipeline,
+                                                 eager_pipeline_step)
+    from ray_tpu_torch.utils.tree import leaves
+
+    F, M = PP_ACTORS, PP_MB
+    stage_params = _stage_params(params, F)
+    tokens = torch.randint(0, cfg.vocab_size, (PP_B, SEQ + 1),
+                           generator=torch.Generator().manual_seed(18))
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    steps = 1 + PP_COMPILED_STEPS + 1
+    t0 = time.perf_counter()
+    ref_losses, ref_params = _pp_reference(cfg, stage_params, x, y, steps)
+    ref_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    Stage = rt.remote(num_gpus=1, max_concurrency=4)(_pp_stage_class())
+    stages = [Stage.remote(_gpt_stage_fn(cfg, i, F), stage_params[i],
+                           position=i, n_stages=F, lr=PP_LR,
+                           loss_fn=_ce if i == F - 1 else None,
+                           device=DEVICE)
+              for i in range(F)]
+    pids = rt.get([s.zero.remote() for s in stages],
+                  timeout=RUNTIME_SPAWN_S)
+    want = _pp_launches(cfg, F, M)
+
+    def counts_since_zero() -> list:
+        got = rt.get([s.counts.remote() for s in stages], timeout=60)
+        rt.get([s.zero.remote() for s in stages], timeout=60)
+        return [tuple(c) for c in got]
+
+    losses, step_s = [], []
+    t0 = time.perf_counter()
+    losses.append(eager_pipeline_step(stages, x, y, M, timeout=600))
+    step_s.append(time.perf_counter() - t0)
+    eager1 = counts_since_zero()
+    pipe = CompiledPipeline(stages, n_microbatches=M,
+                            channel_capacity=PP_CAPACITY,
+                            tensor_transport="device")
+    stop = None
+    try:
+        for i in range(PP_COMPILED_STEPS):
+            if i == 1:
+                stop = _util_sampler()
+            t0 = time.perf_counter()
+            losses.append(pipe.step(x, y))
+            step_s.append(time.perf_counter() - t0)
+    finally:
+        busy = stop() if stop is not None else []
+        pipe.close()
+    compiled = counts_since_zero()
+    rings = [n for n in pipe.names.values()
+             if os.path.exists(f"/dev/shm/{n}")]
+    left = _wait_devices_empty(stages, rt)
+    t0 = time.perf_counter()
+    losses.append(eager_pipeline_step(stages, x, y, M, timeout=600))
+    step_s.append(time.perf_counter() - t0)
+    eager2 = counts_since_zero()
+    got = rt.get([s.get_params.remote() for s in stages], timeout=120)
+    for s in stages:
+        rt.kill(s)
+    loss_gap = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    init = [_np_tree(p) for p in stage_params]
+    share = 0.0
+    for g, r, p0 in zip(got, ref_params, init):
+        for gl, rl, pl in zip(leaves(g), leaves(r), leaves(p0)):
+            upd = float(abs(rl - pl).max())
+            gap = float(abs(gl - rl).max())
+            if upd > 0:
+                share = max(share, gap / upd)
+            elif gap > 0:
+                share = float("inf")
+    compiled_per_step = [tuple(v // PP_COMPILED_STEPS for v in c)
+                         for c in compiled]
+    log(f"[compiled] (b) {PRESET} 1F1B on {F} num_gpus=1 stage actors (pids "
+        f"{pids}) of {cfg.n_layer // F} blocks, B={PP_B} T={SEQ} M={M}, "
+        f"device edges, ring capacity {PP_CAPACITY} B: losses {losses} "
+        f"against this process's full-batch steps {ref_losses} (largest gap "
+        f"{loss_gap:.2e}, bound {TOL_TRAIN_LOSS}); params' largest gap "
+        f"{share:.3e} of the largest update (bound {PP_PARAM_SHARE}); "
+        f"K1/K2/K3 a step by stage: eager {eager1}, compiled "
+        f"{compiled_per_step} (over {PP_COMPILED_STEPS} steps {compiled}), "
+        f"eager again {eager2}, want {want}; step ms eager "
+        f"{1e3 * step_s[0]:.1f} (first, cold) and {1e3 * step_s[-1]:.1f} "
+        f"(warm), compiled {[round(1e3 * s, 1) for s in step_s[1:-1]]} "
+        f"(first with the rings' bring-up); card busy share during compiled "
+        f"steps 2-3 (nvidia-smi utilization.gpu, {len(busy)} samples) "
+        f"{(sum(busy) / len(busy)) if busy else float('nan'):.1f} %; "
+        f"in-process reference {ref_s:.1f} s; rings left {rings}; device "
+        f"objects and snapshots left by stage {left}; {card}")
+    if loss_gap > TOL_TRAIN_LOSS:
+        raise AssertionError(f"(b): loss gap {loss_gap} > {TOL_TRAIN_LOSS}")
+    if share > PP_PARAM_SHARE:
+        raise AssertionError(f"(b): params gap {share} of the update > "
+                             f"{PP_PARAM_SHARE}")
+    for what, by_stage in (("eager step 1", eager1),
+                           ("eager step 5", eager2),
+                           (f"{PP_COMPILED_STEPS} compiled steps",
+                            compiled)):
+        scale = PP_COMPILED_STEPS if "compiled" in what else 1
+        for i, (c, w) in enumerate(zip(by_stage, want)):
+            _runtime_launch_check(f"(b) {what}, stage {i}", c,
+                                  tuple(scale * v for v in w))
+    if rings or any(n != (0, 0) for n in left):
+        raise AssertionError(f"(b): left after close: rings {rings}, "
+                             f"device objects {left}")
+    total = [sum(c[i] for c in eager1 + compiled + eager2) for i in range(3)]
+    return {f"{PRESET} 1F1B pipeline ({F} stage actors) train": tuple(total)}
+
+
+def _np_tree(tree):
+    from ray_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda t: t.float().numpy(), tree)
+
+
+def compiled_pp_cards(card: str) -> dict:
+    """(b)'s model and batch across cards: a cluster_utils daemon of one
+    card each (CUDA_VISIBLE_DEVICES), under store isolation, one stage
+    actor on each, so every ring crosses nodes (a remote reader through
+    the writer's process); PP_COMPILED_STEPS compiled steps with host
+    edges, then with device edges (a snapshot pulled across nodes), each
+    step within TOL_TRAIN_LOSS of the in-process steps on one card. Run by
+    tests/test_torch_cuda.py::test_compiled_pipeline_across_cards on four
+    cards. Returns, by edge kind, the losses, step ms and the cards the
+    stages ran on."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core.api import _global_client
+    from ray_tpu_torch.parallel.pipeline import CompiledPipeline
+
+    F, M = PP_ACTORS, PP_MB
+    on_card = torch.device(DEVICE).type == "cuda"
+    cfg = gpt2.GPT2Config.preset(PRESET, attn_impl="flash", remat=False)
+    params = gpt2.init_params(torch.Generator().manual_seed(0), cfg, DEVICE)
+    stage_params = _stage_params(params, F)
+    del params
+    tokens = torch.randint(0, cfg.vocab_size, (PP_B, SEQ + 1),
+                           generator=torch.Generator().manual_seed(18))
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    ref_losses, _ = _pp_reference(cfg, stage_params, x, y, PP_COMPILED_STEPS)
+    if on_card:
+        torch.cuda.empty_cache()
+    os.environ["RAY_TPU_STORE_ISOLATION"] = "1"
+    c, out = None, {}
+    try:
+        c = Cluster(num_cpus=0)
+        for i in range(F):
+            c.add_node(num_cpus=2, num_gpus=1, labels={"card": str(i)},
+                       env={"CUDA_VISIBLE_DEVICES": str(i)} if on_card
+                       else None)
+        c.connect()
+        c.wait_for_nodes(F + 1)
+        Stage = rt.remote(num_gpus=1, max_concurrency=4)(_pp_stage_class())
+        client = _global_client()
+        for kind, transport in (("host", None), ("device", "device")):
+            stages = [Stage.options(label_selector={"card": str(i)}).remote(
+                _gpt_stage_fn(cfg, i, F), stage_params[i], position=i,
+                n_stages=F, lr=PP_LR, loss_fn=_ce if i == F - 1 else None,
+                device=DEVICE) for i in range(F)]
+            cards = rt.get([s.card.remote() for s in stages],
+                           timeout=RUNTIME_SPAWN_S)
+            nodes = [client.head_request(
+                "get_actor_address", actor_id=s._actor_id.binary())[
+                    "node_id"] for s in stages]
+            pipe = CompiledPipeline(stages, n_microbatches=M,
+                                    channel_capacity=PP_CAPACITY,
+                                    tensor_transport=transport)
+            losses, secs = [], []
+            try:
+                for _ in range(PP_COMPILED_STEPS):
+                    t0 = time.perf_counter()
+                    losses.append(pipe.step(x, y))
+                    secs.append(time.perf_counter() - t0)
+            finally:
+                pipe.close()
+            rings = [n for n in pipe.names.values()
+                     if os.path.exists(f"/dev/shm/{n}")]
+            for s in stages:
+                rt.kill(s)
+            gap = max(abs(a - b) for a, b in zip(losses, ref_losses))
+            out[kind] = {"losses": losses, "ms": [1e3 * t for t in secs],
+                         "cards": cards, "nodes": nodes, "gap": gap,
+                         "rings": rings}
+            log(f"[compiled across cards] {PRESET} 1F1B, {F} stages on {F} "
+                f"nodes of one card each, {kind} edges: losses {losses} "
+                f"against one card's {ref_losses} (largest gap {gap:.2e}, "
+                f"bound {TOL_TRAIN_LOSS}); step ms "
+                f"{[round(v, 1) for v in out[kind]['ms']]} (the first with "
+                f"the rings' bring-up); cards {cards}; distinct nodes "
+                f"{len(set(nodes))}; rings left {rings}; {card}")
+    finally:
+        rt.shutdown()
+        os.environ.pop("RAY_TPU_STORE_ISOLATION", None)
+        if c is not None:
+            c.shutdown()
+            left, segs = c.processes(), c.segments()
+            log(f"[compiled across cards] shutdown: processes left {left}, "
+                f"segments left {segs}")
+            if left or segs:
+                raise AssertionError("the cluster leaked")
+    for kind, r in out.items():
+        if r["gap"] > TOL_TRAIN_LOSS:
+            raise AssertionError(f"{kind} edges: loss gap {r['gap']}")
+        if len(set(r["nodes"])) != F or r["rings"]:
+            raise AssertionError(f"{kind} edges: nodes {r['nodes']}, rings "
+                                 f"left {r['rings']}")
+        if on_card and len(set(r["cards"])) != F:
+            raise AssertionError(f"{kind} edges: cards {r['cards']}")
+    return out
+
+
+def phase_compiled(card: str) -> dict:
+    """Compiled DAGs and the channel-driven 1F1B pipeline on the card
+    (phase 17). Returns each run's launches, counted in its actors'
+    processes."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api as rt_api
+
+    cfg = gpt2.GPT2Config.preset(PRESET, attn_impl="flash", remat=False)
+    params = gpt2.init_params(torch.Generator().manual_seed(0), cfg, DEVICE)
+    t0 = time.perf_counter()
+    info = rt.init(num_cpus=RUNTIME_CPUS + 4, num_gpus=PP_ACTORS)
+    session = info["session"]
+    log(f"[compiled] runtime up in {time.perf_counter() - t0:.2f} s, "
+        f"cluster {rt.cluster_resources()} (the one card advertised as "
+        f"{PP_ACTORS} GPUs)")
+    try:
+        t0 = time.perf_counter()
+        paths = _compiled_dag(rt, card, cfg, params)
+        log(f"[compiled] (a) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        paths.update(_pipeline_run(rt, card, cfg, params))
+        log(f"[compiled] (b) {time.perf_counter() - t0:.1f} s")
+        return paths
+    finally:
+        _shutdown_runtime(rt, rt_api)
+        left = glob.glob(f"/dev/shm/rtpt_*{session[:8]}*") \
+            + glob.glob("/dev/shm/rtpt_chan_*") \
+            + glob.glob("/dev/shm/rtpt_pp_*")
+        log(f"[compiled] shutdown: segments left {left}")
+        if left:
+            raise AssertionError(f"phase 17 left segments {left}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4380,6 +4929,13 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(phase_objects(card))
     log(f"[objects] phase {time.perf_counter() - t0:.1f} s; script so far "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # compiled DAGs and the 1F1B pipeline: each actor's launches, counted
+    # in its own process from 0
+    t0 = time.perf_counter()
+    paths.update(phase_compiled(card))
+    log(f"[compiled] phase {time.perf_counter() - t0:.1f} s; script so far "
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"[paths] K1/K2/K3 launches by path: {paths}")
 

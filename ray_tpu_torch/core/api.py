@@ -5,9 +5,8 @@ Counterpart of `ray_tpu/core/api.py`, with GPUs (`num_gpus`, resource
 The head and its workers run this package's `core.head_main` and
 `core.worker_main`; `init("ray-tpu://host:port")` drives a cluster
 through its head's client proxy. `put_device` keeps a CUDA tensor in its
-process's device store (`core/device_store.py`). What waits for later parts
-of the port raises NotImplementedError naming its ROADMAP item: DAGs
-(`.bind`, item 17).
+process's device store (`core/device_store.py`). `.bind` builds the lazy
+DAGs of `ray_tpu_torch.dag`.
 """
 
 from __future__ import annotations
@@ -280,9 +279,9 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """Lazy DAG node (reference dag API: fn.bind())."""
-        raise NotImplementedError(
-            "DAGs (.bind) wait for the port's compiled graphs (ROADMAP item "
-            "17)")
+        from ray_tpu_torch.dag.nodes import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(
@@ -311,9 +310,9 @@ class ActorMethod:
 
     def bind(self, *args, **kwargs):
         """Lazy DAG node (reference dag API: actor.method.bind())."""
-        raise NotImplementedError(
-            "DAGs (.bind) wait for the port's compiled graphs (ROADMAP item "
-            "17)")
+        from ray_tpu_torch.dag.nodes import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._name, args, kwargs)
 
 
 class ActorHandle:

@@ -6,11 +6,11 @@ object put/get/wait, actor calls over direct worker<->worker connections,
 blocked/unblocked notifications to the scheduler. The asyncio loop runs in a
 background thread; the public API is synchronous (like `ray.get`).
 
-Counterpart of `ray_tpu/core/client.py` without its compiled-DAG channel
-plane (ROADMAP item 17). A torch tensor put or returned here travels as
-host bytes (`serialization`); a device object (`put_device`, an actor
-method with `tensor_transport="device"`) stays in its owner's device store
-(`device_store`) and reaches other processes as a shm snapshot
+Counterpart of `ray_tpu/core/client.py`. A torch tensor put or returned
+here travels as host bytes (`serialization`); a device object
+(`put_device`, an actor method with `tensor_transport="device"`) stays in
+its owner's device store (`device_store`) and reaches other processes as a
+shm snapshot
 (`device_transport`) or, between members of one collective gang, over the
 gang's own transport (NCCL on the card).
 """
@@ -101,6 +101,10 @@ class CoreClient:
             self._extra_handlers.setdefault("log_lines", self._on_log_lines)
         self._direct: Dict[Tuple[str, int], protocol.Connection] = {}
         self._actor_addr_cache: Dict[ActorID, Tuple[str, int]] = {}
+        # compiled-DAG channels hosted by THIS process (created via the
+        # dag_chan_create direct RPC); plus the serving-side read pool
+        self._dag_channels: Dict[str, Any] = {}
+        self._dag_read_pool = None
         # user pubsub subscriptions: channel -> [callback]
         self._pubsub_callbacks: Dict[str, list] = {}
         # post-reconnect hooks (pool_reconcile pattern for client-held
@@ -243,6 +247,75 @@ class CoreClient:
         return True
 
     async def _on_health_ping(self):
+        return True
+
+    # ------------------------------------------- compiled-DAG channel plane
+    # Reference: remote-reader mutable objects
+    # (`python/ray/experimental/channel/shared_memory_channel.py`,
+    # `src/ray/core_worker/experimental_mutable_object_provider.cc`) — a
+    # channel lives in its WRITER's process; cross-node readers read
+    # through these RPCs on the writer process's direct server.
+
+    async def _on_dag_chan_create(self, name, capacity, num_readers,
+                                  num_slots=1):
+        from ray_tpu_torch.dag.channel import Channel
+
+        if name not in self._dag_channels:
+            ch = Channel(name=name, capacity=capacity,
+                         num_readers=num_readers, num_slots=num_slots)
+            ch._rlock = threading.Lock()
+            self._dag_channels[name] = ch
+        return True
+
+    async def _on_dag_chan_read(self, name, last_seq, max_wait):
+        from ray_tpu_torch.dag.channel import Channel, ChannelClosedError
+
+        ch = self._dag_channels.get(name)
+        if ch is None:
+            # a reader of a channel another local process created (the
+            # driver co-located with a worker): serve from an attachment
+            try:
+                ch = Channel.attach(name)
+            except Exception:
+                return {"closed": True}
+            ch._rlock = threading.Lock()
+            self._dag_channels[name] = ch
+        if self._dag_read_pool is None:
+            self._dag_read_pool = _cf.ThreadPoolExecutor(
+                max_workers=16, thread_name_prefix="dag-read")
+
+        def blocking():
+            # one read at a time per channel: the cursor is the caller's,
+            # but a close must not unmap under a read in flight
+            with ch._rlock:
+                try:
+                    seq, data = ch.read_raw(last_seq, timeout=max_wait)
+                    return {"seq": seq, "data": data}
+                except TimeoutError:
+                    return {"seq": last_seq, "data": None}
+                except ChannelClosedError:
+                    return {"closed": True}
+
+        return await asyncio.get_running_loop().run_in_executor(
+            self._dag_read_pool, blocking)
+
+    async def _on_dag_chan_close(self, name, unlink):
+        ch = self._dag_channels.pop(name, None)
+        if ch is not None:
+            # shutdown first: wakes any read blocked in the pool (new
+            # ops see closed); the munmap-ing close then runs under the
+            # read lock OFF the event loop, so it can never pull the
+            # mapping out from under an in-flight blocking() read
+            ch.shutdown()
+
+            def _close():
+                with ch._rlock:
+                    ch.close(unlink=unlink)
+
+            if self._dag_read_pool is not None:
+                self._dag_read_pool.submit(_close)
+            else:
+                _close()
         return True
 
     async def _on_pubsub(self, channel, msg):
@@ -533,6 +606,11 @@ class CoreClient:
                                    self._on_fetch_device_object)
         direct_handlers.setdefault("fetch_device_ici",
                                    self._on_fetch_device_ici)
+        # compiled-DAG channel plane (process-level, independent of the
+        # actor executor — teardown works even while an exec loop runs)
+        direct_handlers.setdefault("dag_chan_create", self._on_dag_chan_create)
+        direct_handlers.setdefault("dag_chan_read", self._on_dag_chan_read)
+        direct_handlers.setdefault("dag_chan_close", self._on_dag_chan_close)
         # tracker active BEFORE the loop can dispatch anything: a task or
         # actor __init__ processed during registration may construct
         # ObjectRefs, and every one of them must be counted (else the head
@@ -1085,7 +1163,13 @@ class CoreClient:
         meta = self.local_metas.get(ref.id)
         if meta is not None and ref.id not in self._registered:
             self._registered.add(ref.id)
-            self.head_request("put_meta", meta=meta)  # rides a head restart
+            # hold=True: the head counts this process as a holder at once.
+            # Its own batched inc may still be in flight, and the consumer
+            # we hand the ref to may inc and dec it first: the head would
+            # then see no holder left and evict an object this process
+            # still holds (the JAX package's client has that race). A
+            # request, not a push: it rides a head restart
+            self.head_request("put_meta", meta=meta, hold=True)
 
     def adopt_meta(self, meta: ObjectMeta) -> ObjectRef:
         """Record a meta received from a direct actor reply."""

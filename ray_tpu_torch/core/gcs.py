@@ -1050,11 +1050,16 @@ class Head:
                 self._mark_actor_dead(info, "killed")
             return True
 
-        async def put_meta(meta):
+        async def put_meta(meta, hold=False):
             w = conn_state.get("worker")
             if meta.node_id is None and w is not None:
                 meta.node_id = w.node_id  # locate for node-loss recovery
             self._seal(meta)
+            if hold and w is not None:
+                # the registering process holds a ref it is about to hand
+                # on (client.ensure_registered): count it before its own
+                # batched inc lands, which a consumer's inc/dec can outrun
+                self._add_holder(meta.object_id, w.worker_id)
             return True
 
         async def get_meta(object_id, timeout=None):

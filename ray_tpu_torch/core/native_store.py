@@ -1,16 +1,18 @@
 """ctypes bindings for the native arena object store (csrc/arena_store.cc).
 
-Builds the arena library on demand with ``g++`` into ``ray_tpu_torch/_build/``
-(ignored by git), named by a hash of the source and the flags, and exposes
-`Arena`: one shm segment per node holding every object, with the C++ side
-owning the allocator/table/LRU and Python mapping the same segment via `mmap`
-for zero-copy payload views. Falls back cleanly (`native_available() ->
-False`) when no compiler is present; callers then use per-object segments.
+Builds the native library on demand with ``g++`` into
+``ray_tpu_torch/_build/`` (ignored by git), named by a hash of its sources
+and the flags, and exposes `Arena`: one shm segment per node holding every
+object, with the C++ side owning the allocator/table/LRU and Python mapping
+the same segment via `mmap` for zero-copy payload views. The same library
+holds the compiled DAGs' ring channels (csrc/channel.cc, bound by
+`ray_tpu_torch.dag.channel`). Without a compiler `native_available()` is
+False: the object store then uses per-object segments, and a `Channel`
+raises.
 
 Counterpart of `ray_tpu/core/native_store.py`, which runs ``make`` inside
 ``ray_tpu/_native/`` and loads the library from there. The port keeps its
-own copy of ``arena_store.cc``; ``channel.cc`` waits for the compiled DAGs
-(ROADMAP item 17).
+own copies of ``arena_store.cc`` and ``channel.cc``.
 
 Reference counterpart: the plasma client (`src/ray/object_manager/plasma/
 client.h`) — except create/seal/get here are in-process calls on shared
@@ -29,7 +31,8 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG, "csrc", "arena_store.cc")
+_SOURCES = [os.path.join(_PKG, "csrc", name)
+            for name in ("arena_store.cc", "channel.cc")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 CXX_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-Wall", "-shared"]
 LD_FLAGS = ["-lpthread", "-lrt"]
@@ -39,13 +42,14 @@ ID_LEN = 16
 
 
 def lib_path() -> str:
-    """The library's path, named by a hash of its source and flags, so an
+    """The library's path, named by a hash of its sources and flags, so an
     edited source is rebuilt and never confused with an old library."""
     h = hashlib.sha256()
-    with open(_SOURCE, "rb") as f:
-        h.update(f.read())
+    for src in _SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(CXX_FLAGS + LD_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"arena_store-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"native_store-{h.hexdigest()[:16]}.so")
 
 
 def _build(out: str) -> bool:
@@ -57,7 +61,7 @@ def _build(out: str) -> bool:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     try:
-        subprocess.run([cxx, *CXX_FLAGS, _SOURCE, "-o", tmp, *LD_FLAGS],
+        subprocess.run([cxx, *CXX_FLAGS, *_SOURCES, "-o", tmp, *LD_FLAGS],
                        check=True, capture_output=True, timeout=120)
         os.replace(tmp, out)
         return True

@@ -430,10 +430,15 @@ class WorkerRuntime:
         def _run():
             try:
                 if method == "__rtpu_dag_exec_loop__":
-                    raise NotImplementedError(
-                        "compiled-DAG loops wait for the port's DAGs "
-                        "(ROADMAP item 17)")
-                f = getattr(self.actor_instance, method)
+                    # injected compiled-DAG loop (reference __ray_call__ +
+                    # do_exec_tasks): runs against the hosted instance
+                    import functools
+
+                    from ray_tpu_torch.dag.runtime import exec_dag_loop
+
+                    f = functools.partial(exec_dag_loop, self.actor_instance)
+                else:
+                    f = getattr(self.actor_instance, method)
                 with tracing.execute_span(span_name, trace):
                     a, kw = self._resolve_args(args)
                     result = f(*a, **kw)

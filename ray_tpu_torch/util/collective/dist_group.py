@@ -357,14 +357,27 @@ class DistCollectiveGroup:
                     comm.pg.shutdown()
 
 
+# never a record (records are JSON objects): compare_set returns it as the
+# value of a key that is absent
+_ABSENT = "\0absent"
+
+
 def lookup_membership(store: dist.Store, rank: int,
                       wait: bool = False) -> Optional[dict]:
     """A member's published record in a group's store (`group.store`), or
-    None (waits for it when `wait`)."""
+    None (waits for it when `wait`).
+
+    Without `wait` the record is read in one store op that never blocks:
+    `compare_set` with an expected value no record has returns the record
+    when the key exists and the expected value when it does not, and sets
+    nothing either way. A `check` then a `get` would race a member that
+    withdraws its record between the two (`destroy`), and the `get` would
+    then block for the store's whole timeout."""
     key = f"members/{rank}"
-    if not wait and not store.check([key]):
-        return None
-    return json.loads(store.get(key))
+    if wait:
+        return json.loads(store.get(key))
+    raw = store.compare_set(key, _ABSENT, _ABSENT)
+    return None if raw == _ABSENT.encode() else json.loads(raw)
 
 
 def lookup_worker(client, worker_id_hex: str) -> Optional[dict]:

@@ -7,9 +7,17 @@ actors on the same inputs. A group made by `init_collective_group` inside
 the actors, without `store=`, meets through the runtime the same way.
 A group destroyed by its members can be declared or made again by its
 name: rank 0, which serves the group's store, keeps it up until the other
-members have left.
+members have left. Rank 0 looks the others' membership records up without
+waiting: a record withdrawn between a `check` and a `get` used to make the
+`get` block for the store's whole timeout (rank 0's `destroy` then raised
+DistStoreError after 60 s when the other member left late, as under the
+whole suite's load); the lookup is now one `compare_set` that never
+blocks.
 The NCCL version over two `num_gpus=1` actors is in tests/test_torch_cuda.py.
 """
+
+import os
+import tempfile
 
 import numpy as np
 
@@ -192,3 +200,47 @@ def test_imperative_group_meets_through_the_runtime():
                                      timeout=120) == [False, False]
     finally:
         ray_tpu_torch.shutdown()
+
+
+def test_membership_lookup_never_waits_on_a_withdrawn_record():
+    """`lookup_membership` without `wait` reads a record in one store op
+    that never blocks and creates nothing: a record that is there comes
+    back, one withdrawn (a member's `destroy`) reads as None at once, on
+    every store a group meets through (TCP, file, hash)."""
+    import datetime
+    import json
+    import time
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.util.collective.dist_group import lookup_membership
+
+    class Recording:
+        """A store proxy that records which ops a lookup makes."""
+
+        def __init__(self, store):
+            self.store, self.ops = store, []
+
+        def __getattr__(self, name):
+            self.ops.append(name)
+            return getattr(self.store, name)
+
+    tcp = dist.TCPStore("127.0.0.1", 0, 1, True,
+                        datetime.timedelta(seconds=30))
+    stores = [tcp, dist.HashStore(),
+              dist.FileStore(os.path.join(tempfile.mkdtemp(), "fs"), 1)]
+    record = {"group": "g", "rank": 1, "world": 2}
+    for base in stores:
+        store = dist.PrefixStore("collective/g/0/", base)
+        assert lookup_membership(store, 1) is None
+        assert not store.check(["members/1"])   # the lookup created nothing
+        store.set("members/1", json.dumps(record))
+        assert lookup_membership(store, 1) == record
+        assert lookup_membership(store, 1, wait=True) == record
+        store.delete_key("members/1")   # the member withdraws it
+        t0 = time.monotonic()
+        assert lookup_membership(store, 1) is None
+        assert time.monotonic() - t0 < 5
+        rec = Recording(store)
+        assert lookup_membership(rec, 1) is None
+        assert rec.ops == ["compare_set"], rec.ops

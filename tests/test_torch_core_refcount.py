@@ -8,6 +8,12 @@ Reference parity target: `src/ray/core_worker/reference_count.h:73` —
 objects live while any process holds an ObjectRef, an in-flight task
 references them, a live container object embeds them, or a
 reconstructable lineage entry needs them; `free()` is optional.
+
+Beyond the mirror: an actor-call result the driver holds and hands to a
+second actor survives that actor's inc and dec reaching the head before
+the driver's own batched inc (the JAX package's head evicts it then, and
+a later call taking the ref waits forever for its meta; the port's
+driver registers itself as a holder when it registers the ref).
 """
 
 import gc
@@ -235,3 +241,38 @@ def test_soak_directory_stays_bounded(cluster):
             return
         time.sleep(0.25)
     raise AssertionError(f"directory still has {len(_object_ids())} objects")
+
+
+def test_handed_on_result_survives_a_faster_borrower(cluster):
+    """The driver holds an actor-call result R and passes it to actor B;
+    B's inc and dec reach the head while the driver's own inc is still
+    batched (this process flushes its transitions 1 s late here). R must
+    stay: the next call that takes it resolves at once."""
+    import torch
+
+    from ray_tpu_torch.core import refcount
+
+    @ray_tpu_torch.remote
+    class Holder:
+        def make(self):
+            return torch.arange(ARR // 4, dtype=torch.float32)
+
+        def total(self, x):
+            return float(x.sum())
+
+    a, b = Holder.remote(), Holder.remote()
+    ray_tpu_torch.get([a.total.remote(torch.ones(1)),
+                       b.total.remote(torch.ones(1))], timeout=60)
+    want = float(torch.arange(ARR // 4, dtype=torch.float32).sum())
+    orig = refcount._flush_s
+    refcount._flush_s = lambda: 1.0
+    try:
+        time.sleep(0.3)   # a flush already scheduled at the old pace fires
+        r = a.make.remote()
+        assert ray_tpu_torch.get(b.total.remote(r), timeout=60) == want
+        time.sleep(0.5)   # B's transitions have landed, ours have not
+        assert ray_tpu_torch.get(a.total.remote(r), timeout=10) == want
+    finally:
+        refcount._flush_s = orig
+        ray_tpu_torch.kill(a)
+        ray_tpu_torch.kill(b)

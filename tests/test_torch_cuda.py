@@ -933,3 +933,26 @@ def test_multinode_across_cards(cuda):
     for g in got:
         np.testing.assert_array_equal(g["allreduce"].numpy(), xs[0] + xs[1])
         np.testing.assert_array_equal(g["broadcast"].numpy(), xs[1])
+
+
+@pytest.mark.cuda
+def test_compiled_pipeline_across_cards(cuda):
+    # chip_smoke's phase 17 (b) model and batch (GPT-2-125M, 4 stages of 3
+    # blocks, B=8 T=1024, M=4) across four cluster_utils daemons of one
+    # card each (CUDA_VISIBLE_DEVICES), one stage actor on each, so every
+    # ring crosses nodes: 3 compiled steps with host edges, then 3 with
+    # device edges, each step within 0.01 loss of the same steps in this
+    # process on one card; the stages on four distinct cards; nothing of
+    # the session left after the shutdown (chip_smoke.compiled_pp_cards)
+    import chip_smoke
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards: one stage a card")
+    everyone = sorted(str(torch.cuda.get_device_properties(i).uuid)
+                      for i in range(torch.cuda.device_count()))
+    out = chip_smoke.compiled_pp_cards(chip_smoke.gpu_line())
+    assert sorted(out) == ["device", "host"]
+    for kind, r in out.items():
+        assert sorted(r["cards"]) == everyone, (kind, r["cards"])
+        assert r["gap"] <= chip_smoke.TOL_TRAIN_LOSS, (kind, r["losses"])
+        assert len(set(r["nodes"])) == 4 and r["rings"] == []

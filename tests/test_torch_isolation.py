@@ -2,8 +2,9 @@
 
 In a fresh interpreter, import every module of ray_tpu_torch and chip_smoke
 (as a module: its main() does not run), then look at sys.modules. The
-runtime's control plane (head, worker, client, API) imports no torch either,
-and the processes the runtime starts run the port's own modules.
+runtime's control plane (head, worker, client, API) and the compiled DAGs
+(`ray_tpu_torch.dag`) import no torch either, and the processes the runtime
+starts run the port's own modules.
 """
 
 import os
@@ -58,7 +59,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.parallel.pipeline",
                  "ray_tpu_torch.train.checkpoint",
                  "ray_tpu_torch.train.config", "chip_smoke",
-                 *CORE, "ray_tpu_torch.util", "ray_tpu_torch.util.metrics",
+                 *CORE, *DAG, "ray_tpu_torch.util",
+                 "ray_tpu_torch.util.metrics",
                  "ray_tpu_torch.util.tracing", "ray_tpu_torch.scripts.cli"):
         assert want in res["imported"]
 
@@ -74,12 +76,19 @@ CORE = tuple(f"ray_tpu_torch.core.{m}" for m in (
     "resource_view", "resources", "runtime_env", "serialization", "store",
     "worker_logs", "worker_main", "workload_watchdog"))
 
+# the compiled DAGs (its modules import no torch either)
+DAG = ("ray_tpu_torch.dag", *(f"ray_tpu_torch.dag.{m}" for m in (
+    "channel", "nodes", "runtime", "compiled")))
+
 CONTROL_PLANE_PROBE = r"""
 import json, sys
 for name in ("ray_tpu_torch.core.gcs", "ray_tpu_torch.core.head_main",
              "ray_tpu_torch.core.worker_main", "ray_tpu_torch.core.client",
              "ray_tpu_torch.core.api", "ray_tpu_torch.util.metrics",
-             "ray_tpu_torch.util.tracing", "ray_tpu_torch.utils.platform"):
+             "ray_tpu_torch.util.tracing", "ray_tpu_torch.utils.platform",
+             "ray_tpu_torch.dag", "ray_tpu_torch.dag.channel",
+             "ray_tpu_torch.dag.nodes", "ray_tpu_torch.dag.runtime",
+             "ray_tpu_torch.dag.compiled"):
     __import__(name)
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("torch", "jax", "ray_tpu"))))
