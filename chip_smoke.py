@@ -178,6 +178,25 @@ Phases, each reported on its own line:
    each stage's process exactly as the code gives them (24/12/12 on
    stages 0-2, 12/12/12 on the last), every ring and device object gone
    after close; step ms and the card's busy share (nvidia-smi).
+18. the serve control plane (phase_serve_plane): a head with no GPU and a
+   daemon advertising 2 GPUs on the one card, the HTTP proxy; (a)
+   build_llm_deployment(gpt2-125m) at phase 14's engine configuration on
+   two num_gpus=1 replicas: prompts a and b through the proxy (a and b at
+   once, twice: one on each replica, each alone in its engine) and
+   through a DeploymentHandle, every token list equal to
+   phase 14's driver-side server's, both replicas answering; warm request
+   ms by route (HTTP, handle, this process's server) and the in-process
+   TTFT; build_openai_app on one replica: an SSE stream of prompt a
+   (text/event-stream, [DONE] last) whose text is the decode of those
+   tokens, its TTFT through the proxy; (b)+(c) a scorer deployment
+   (num_gpus=1, @serve.batch of 4) running gpt2.forward (K1 once a layer)
+   at T=1024 with min_replicas=0: parked when deployed, woken by the
+   first of 8 concurrent HTTP requests, replicas 0 -> 1 -> 0, the cold
+   first answer timed, each request's logits within TOL_LOGITS of this
+   process's B=1 forward, at least one batch of two or more, K1 = 12 x
+   the forwards counted in the replica; nothing of the session left.
+   Across cards, tests/test_torch_cuda.py::test_serve_replicas_across_cards
+   puts the two replicas on two daemons of one card each.
    Across four cards, tests/test_torch_cuda.py::
    test_compiled_pipeline_across_cards runs (b)'s pipeline a stage a card
    (compiled_pp_cards), every ring crossing nodes.
@@ -202,7 +221,8 @@ that expansion. Phases 4-5 (GPT-2 inference), 5b (the OpenAI server), 6
 (GPT-2 training), 6b's (b) (data-parallel training), 6c's (a) and (c)
 (sharded training), 7, 8, 9, each case of 10, 11, 12 and 13's (b) are
 the main paths: every kernel's launch count is set to 0 before each and read right
-after; in phases 14-17 each actor or task counts its own launches from 0. The line before the last lists the kernels as JSON, with the GPT-2
+after; in phases 14-18 each actor, task or replica counts its own launches
+from 0. The line before the last lists the kernels as JSON, with the GPT-2
 training path's counts under "launches", every path's under
 "launches_by_path", the ring's non-causal chunk pair under "ring_chunk",
 its ragged one under "ring_ragged_chunk" and the head dim 80 case under
@@ -241,6 +261,7 @@ import torch.multiprocessing as mp
 import torch.nn.functional as F
 
 import ray_tpu_torch
+from ray_tpu_torch import serve
 from ray_tpu_torch.models import gpt2, llama, moe
 from ray_tpu_torch.ops import _kernels
 from ray_tpu_torch.ops import flash_attention as fa
@@ -3539,6 +3560,7 @@ def _shutdown_runtime(rt, rt_api) -> None:
 MULTI_ACTOR = "phase15-server"
 MULTI_HEAD_WAIT_S = 60
 MULTI_PROBE_S = 5.0
+MULTI_READOPT_S = 30   # the wait for the actor's process to re-register
 
 
 class MultiNodeServer(RuntimeServer):
@@ -3584,6 +3606,28 @@ def _check_no_context(pids: dict) -> None:
         libs = _driver_libs(pid)
         if any(lib.startswith("libcuda.") for lib in libs):
             raise AssertionError(f"the {what} (pid {pid}) maps {libs}")
+
+
+def _restart_events(state, t_kill: float, client) -> str:
+    """The restarted head's scheduling events and its actor records since
+    the kill, each at its seconds after the kill, to say why a surviving
+    actor process was not re-adopted."""
+    try:
+        events = [f"{e['ts'] - t_kill:.2f} s {e['kind']} "
+                  + " ".join(f"{k}={v}" for k, v in e.items()
+                             if k not in ("ts", "kind"))
+                  for e in state.list_lease_events()
+                  if e.get("ts", 0) >= t_kill][:60]
+        actors = [{k: a.get(k) for k in ("name", "state", "node_id",
+                                         "restarts_left")}
+                  for a in client.head_request("list_state", kind="actors")]
+        workers = [(w["pid"], w["node_id"][:8], w["actor"] and w["actor"][:8])
+                   for w in client.head_request("list_state", kind="workers")
+                   if not w["is_driver"]]
+    except Exception as e:   # the diagnosis must not hide the failure
+        return f"events unreadable: {e!r}"
+    return (f"events since the kill: {events}; actors: {actors}; workers "
+            f"(pid, node, actor): {workers}")
 
 
 def _head_row(state) -> dict:
@@ -3689,6 +3733,7 @@ def phase_multinode(card: str) -> dict:
         # 4. head restart while the actor lives
         epoch0 = _head_row(state)["epoch"]
         time.sleep(2.5)   # a snapshot cycle (every 2 s)
+        t_kill = time.time()
         t0 = time.perf_counter()
         c.kill_head()
         c.restart_head(restore=True)
@@ -3720,9 +3765,19 @@ def phase_multinode(card: str) -> dict:
             time.sleep(0.1)
         back_s = time.perf_counter() - t0
         epoch1 = _head_row(state)["epoch"]
+        # the actor's process re-registers on its own reconnect backoff,
+        # which may retry after its daemon has reconciled: wait for the
+        # head's record of who hosts the actor
         aid = actor._actor_id.hex()
-        hosts = sorted(w["pid"] for w in rt_api._global_client().head_request(
-            "list_state", kind="workers") if w.get("actor") == aid)
+        deadline = time.perf_counter() + MULTI_READOPT_S
+        while True:
+            hosts = sorted(
+                w["pid"] for w in rt_api._global_client().head_request(
+                    "list_state", kind="workers") if w.get("actor") == aid)
+            if hosts or time.perf_counter() > deadline:
+                break
+            time.sleep(0.1)
+        readopt_s = time.perf_counter() - t0
         avail = {n["node_id"]: n["available"].get("GPU", 0)
                  for n in state.list_nodes()}
         total = rt.cluster_resources().get("GPU")
@@ -3732,7 +3787,8 @@ def phase_multinode(card: str) -> dict:
         log(f"[multinode] head killed and restarted with --restore: serving "
             f"again in {up_s:.2f} s, the actor's first answer after "
             f"{answer_s:.2f} s, both daemons reconciled after {back_s:.2f} "
-            f"s; epoch {epoch0} -> {epoch1}; the actor kept its process "
+            f"s, the head's record of the actor's process after "
+            f"{readopt_s:.2f} s; epoch {epoch0} -> {epoch1}; the actor kept its process "
             f"(pid {pid_r}, the head's record {hosts}): {kept}, "
             f"re-created: {not kept}; prompt a's tokens equal: "
             f"{again[0] == ref_tokens[0]}; GPU total {total}, available on "
@@ -3744,8 +3800,11 @@ def phase_multinode(card: str) -> dict:
             raise AssertionError("the actor's tokens changed across the "
                                  "head restart")
         if not kept:
-            raise AssertionError("the restarted head did not re-adopt the "
-                                 "actor's surviving process")
+            raise AssertionError(
+                f"the restarted head did not re-adopt the actor's surviving "
+                f"process (pid {a_pid}; answered from {pid_r}; the head's "
+                f"record {hosts}); "
+                f"{_restart_events(state, t_kill, rt_api._global_client())}")
         if epoch1 <= epoch0:
             raise AssertionError("the head's epoch was not bumped")
         if total != 2 or avail.get(n1) != 0 or min(lows) < 0:
@@ -4822,6 +4881,385 @@ def phase_compiled(card: str) -> dict:
             raise AssertionError(f"phase 17 left segments {left}")
 
 
+# ------------------------------------- phase 18: the serve control plane
+# One node daemon advertising 2 GPUs on the one card, under a head with
+# none. (a) build_llm_deployment at phase 14's engine configuration on two
+# num_gpus=1 replicas behind the HTTP proxy, then build_openai_app on one
+# replica for an SSE stream; (b)+(c) a scorer deployment (num_gpus=1,
+# @serve.batch) running gpt2.forward (K1 once a layer) at
+# T=SERVE_SCORE_T, autoscaled with min_replicas=0: parked when deployed,
+# woken by the first of SERVE_SCORE_N concurrent HTTP requests, parked
+# again once idle. The scorer counts its own launches from 0.
+SERVE_SCORE_T = 1024
+SERVE_SCORE_BATCH = 4
+SERVE_SCORE_N = 8
+SERVE_WAIT_S = 300        # this phase's own deadline for a cold answer
+SERVE_PARK_S = 120        # for the idle scorer to park again
+SERVE_TIMED = 3           # warm whole requests timed on each route
+SERVE_TIMED_SMALL = 10    # warm one-token requests timed on each route
+
+
+class ServeScorer:
+    """(b) The scorer deployment's callable: gpt2.forward (flash: K1 once
+    a layer) on the seeded GPT-2-125M params, batched by @serve.batch.
+    Each answer carries its request's last-position logits (float32
+    bytes, base64) and this replica's counts after the forward that
+    served it."""
+
+    def __init__(self):
+        _no_tf32()
+        self.cfg = gpt2.GPT2Config.preset(PRESET, attn_impl="flash",
+                                          remat=False)
+        self.params = gpt2.init_params(torch.Generator().manual_seed(0),
+                                       self.cfg, DEVICE)
+        self.forwards = 0
+        _zero_counts()
+
+    @serve.batch(max_batch_size=SERVE_SCORE_BATCH, batch_wait_timeout_s=0.1)
+    def __call__(self, requests):
+        import base64
+
+        ids = torch.tensor([r.json["tokens"] for r in requests],
+                           device=DEVICE)
+        with torch.inference_mode():
+            last = gpt2.forward(self.params, ids, self.cfg)[:, -1]
+            last = last.float().cpu()
+        self.forwards += 1
+        counts = _flash_counts()
+        return [{"logits": base64.b64encode(row.numpy().tobytes()).decode(),
+                 "batch": len(requests), "forwards": self.forwards,
+                 "launches": counts, "pid": os.getpid()} for row in last]
+
+
+def _post(url: str, body: dict, timeout: float = SERVE_WAIT_S) -> tuple:
+    """(status, content type, body bytes, seconds) of one JSON POST."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        raw = r.read()
+        return (r.status, r.headers.get("Content-Type"), raw,
+                time.perf_counter() - t0)
+
+
+def _sse(url: str, body: dict) -> tuple:
+    """(seconds to the first event with text, the streamed text, the
+    number of events, the content type) of an SSE request."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    first, text, events = None, "", []
+    with urllib.request.urlopen(req, timeout=SERVE_WAIT_S) as r:
+        ctype = r.headers.get("Content-Type")
+        for line in r:
+            line = line.decode().rstrip("\n")
+            if not line.startswith("data: "):
+                continue
+            events.append(line[len("data: "):])
+            if events[-1] == "[DONE]":
+                break
+            delta = json.loads(events[-1])["choices"][0]["text"]
+            if delta and first is None:
+                first = time.perf_counter() - t0
+            text += delta
+    if events[-1:] != ["[DONE]"]:
+        raise AssertionError(f"the SSE stream did not end with [DONE]: "
+                             f"{events[-3:]}")
+    return first, text, len(events), ctype
+
+
+def _concurrent(fn, args_list) -> list:
+    """fn(*args) for each args in its own thread: [(result, error)]."""
+    out = [None] * len(args_list)
+
+    def run(i, args):
+        try:
+            out[i] = (fn(*args), None)
+        except Exception as e:   # reported by the caller's gate
+            out[i] = (None, e)
+
+    threads = [threading.Thread(target=run, args=(i, a))
+               for i, a in enumerate(args_list)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVE_WAIT_S + 60)
+    return out
+
+
+def _running(serve_api, name: str) -> int:
+    return serve_api.status().get(name, {}).get("running", 0)
+
+
+def _inproc_ttft(server, prompt) -> tuple:
+    """(TTFT s, whole request s, tokens) of one stream of the in-process
+    server."""
+    eng = server.engine
+    t0 = time.perf_counter()
+    sid = eng.start_stream(prompt_ids=prompt, max_tokens=RUNTIME_NEW)
+    first, toks, cursor = None, [], 0
+    while True:
+        part = eng.stream_next(sid, cursor)
+        if part["token_ids"] and first is None:
+            first = time.perf_counter() - t0
+        toks += part["token_ids"]
+        cursor = part["cursor"]
+        if part["done"]:
+            return first, time.perf_counter() - t0, toks
+
+
+def _serve_llm(rt, serve_api, card: str, port: int) -> None:
+    """(a): the LLM app on two replicas through HTTP and a handle, then
+    the OpenAI app's SSE stream; timed against this process's server."""
+    from ray_tpu_torch.serve.llm import (ByteTokenizer, build_llm_deployment,
+                                         build_openai_app)
+
+    prompts = _rt_prompts()
+    ref = RUNTIME_REF["tokens"]
+    engine = dict(max_batch=4, max_seq_len=SERVE_WINDOW, seed=0,
+                  prefill_chunk_size=64, kv_block_size=16, kv_blocks=64,
+                  device=DEVICE)
+    url = f"http://127.0.0.1:{port}"
+    bodies = [{"prompt_ids": p, "max_tokens": RUNTIME_NEW} for p in prompts]
+    t0 = time.perf_counter()
+    h = serve_api.run(build_llm_deployment(PRESET, num_replicas=2, num_gpus=1,
+                                           name="llm", **engine),
+                      route_prefix="/llm")
+    # a and b at once through the proxy, twice: the router's in-flight
+    # counts put one on each replica, so each request runs alone in its
+    # engine as in the driver's server (a batch of two may round
+    # differently); the first wave pays the replicas' cold start
+    answers = _concurrent(lambda b: _post(f"{url}/llm", b),
+                          [(b,) for b in bodies])
+    cold_s = time.perf_counter() - t0
+    answers += _concurrent(lambda b: _post(f"{url}/llm", b),
+                           [(b,) for b in bodies])
+    errors = [e for _, e in answers if e is not None]
+    if errors:
+        raise AssertionError(f"(a) HTTP requests failed: {errors}")
+    http_tokens = [json.loads(r[2])["choices"][0]["token_ids"]
+                   for r, _ in answers]
+    ctypes_ = {r[1] for r, _ in answers}
+    handle_tokens = [h.remote(b).result(timeout=SERVE_WAIT_S)["choices"][0]
+                     ["token_ids"] for b in bodies]
+    table = rt.get(rt.get_actor("serve-controller").get_routing_table.remote(
+        "llm"), timeout=60)
+    totals = {tag: rt.get(r.check_health.remote(), timeout=60)["total"]
+              for tag, r in table["replicas"].items()}
+    http_ok = all(t == ref[i % 2] for i, t in enumerate(http_tokens))
+    handle_ok = handle_tokens == ref
+    log(f"[serve] (a) build_llm_deployment({PRESET}) on 2 num_gpus=1 "
+        f"replicas: deployed and a, b answered at once through the proxy in "
+        f"{cold_s:.2f} s (worker start, torch import, CUDA context and "
+        f"build included); tokens of a, b, then a, b again over HTTP equal to phase "
+        f"14's driver-side server: {http_ok} (content type {ctypes_}); "
+        f"through a DeploymentHandle: {handle_ok}; requests answered by "
+        f"replica {totals}")
+    if not (http_ok and handle_ok):
+        raise AssertionError("(a) tokens differ from the driver's server")
+    if len(totals) != 2 or min(totals.values()) < 1:
+        raise AssertionError(f"(a) not both replicas answered: {totals}")
+
+    # warm timings, the routes in turn: a one-token request (the route's
+    # own cost) and prompt a's whole request, through the proxy, a handle
+    # and the server in this process
+    server = _rt_server()
+    try:
+        small = {"prompt_ids": prompts[0][:16], "max_tokens": 1}
+        routes = {"http": lambda b: _post(f"{url}/llm", b),
+                  "handle": lambda b: h.remote(b).result(
+                      timeout=SERVE_WAIT_S),
+                  "in-process": server}
+        ms = {(name, kind): [] for name in routes for kind in ("1", "a")}
+        for fn in routes.values():
+            fn(small)
+        for body, kind, n in ((small, "1", SERVE_TIMED_SMALL),
+                              (bodies[0], "a", SERVE_TIMED)):
+            for _ in range(n):
+                for name, fn in routes.items():
+                    t0 = time.perf_counter()
+                    fn(body)
+                    ms[name, kind].append(1e3 * (time.perf_counter() - t0))
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        ttft_in, whole_in, toks_in = _inproc_ttft(server, prompts[0])
+    finally:
+        server.shutdown()
+    serve_api.delete("llm")
+    log(f"[serve] (a) warm, routes in turn: a one-token request (16-token "
+        f"prompt) x {SERVE_TIMED_SMALL}, median ms HTTP "
+        f"{med['http', '1']:.3f}, handle {med['handle', '1']:.3f}, "
+        f"in-process {med['in-process', '1']:.3f}: HTTP over in-process "
+        f"{med['http', '1'] - med['in-process', '1']:.3f} ms a request, "
+        f"handle over in-process {med['handle', '1'] - med['in-process', '1']:.3f}"
+        f"; prompt a ({len(prompts[0])} tokens, {RUNTIME_NEW} new) x "
+        f"{SERVE_TIMED}, ms HTTP {[round(x, 2) for x in ms['http', 'a']]}, "
+        f"handle {[round(x, 2) for x in ms['handle', 'a']]}, in-process "
+        f"{[round(x, 2) for x in ms['in-process', 'a']]}: tok/s HTTP "
+        f"{RUNTIME_NEW / med['http', 'a'] * 1e3:.1f}, in-process "
+        f"{RUNTIME_NEW / med['in-process', 'a'] * 1e3:.1f}; in-process TTFT "
+        f"{ttft_in * 1e3:.2f} ms; {card}")
+    if toks_in != ref[0]:
+        raise AssertionError("(a) the in-process stream's tokens differ")
+
+    # the OpenAI app on one replica: an SSE stream of prompt a
+    t0 = time.perf_counter()
+    serve_api.run(build_openai_app(PRESET, num_gpus=1, model_id=PRESET,
+                                   **engine), route_prefix="/v1")
+    body = {"prompt_ids": prompts[0], "max_tokens": RUNTIME_NEW,
+            "temperature": 0.0}
+    status, _, raw, _ = _post(f"{url}/v1/completions", body)
+    cold_s = time.perf_counter() - t0
+    whole = json.loads(raw)["choices"][0]["text"]
+    ttfts, text, n_events, ctype = [], None, 0, None
+    for _ in range(1 + SERVE_TIMED):
+        first, text, n_events, ctype = _sse(f"{url}/v1/completions", body)
+        ttfts.append(1e3 * first)
+    want = ByteTokenizer().decode(ref[0])
+    serve_api.delete(f"openai-{PRESET}")
+    log(f"[serve] (a) build_openai_app on 1 replica: first completion "
+        f"{cold_s:.2f} s after deploy (cold); SSE of prompt a: content "
+        f"type {ctype}, {n_events} events ending [DONE], streamed text "
+        f"equal to the decode of phase 14's tokens: {text == want}, to the "
+        f"non-streamed completion: {text == whole}; TTFT through the proxy "
+        f"ms {[round(t, 2) for t in ttfts]} (first cold-ish) against "
+        f"{ttft_in * 1e3:.2f} in-process; {card}")
+    if status != 200 or not ctype.startswith("text/event-stream"):
+        raise AssertionError("(a) the SSE request failed")
+    if text != want or whole != want:
+        raise AssertionError("(a) the streamed text differs from phase "
+                             "14's tokens")
+
+
+def _serve_scorer(rt, serve_api, card: str, port: int) -> dict:
+    """(b)+(c): the scorer parked, woken by a burst of concurrent HTTP
+    requests, batched, and parked again. Returns its launches, counted in
+    its own process."""
+    import base64
+
+    cfg = gpt2.GPT2Config.preset(PRESET, attn_impl="flash", remat=False)
+    params = gpt2.init_params(torch.Generator().manual_seed(0), cfg, DEVICE)
+    prompts = [_prompt(100 + i, SERVE_SCORE_T) for i in range(SERVE_SCORE_N)]
+    with torch.inference_mode():
+        refs = [gpt2.forward(params, torch.tensor([p], device=DEVICE),
+                             cfg)[0, -1].float().cpu() for p in prompts]
+    del params
+    dep = serve_api.deployment(
+        ServeScorer, name="scorer",
+        ray_actor_options={"num_cpus": 1, "num_gpus": 1},
+        max_ongoing_requests=2 * SERVE_SCORE_N,
+        autoscaling_config=serve_api.AutoscalingConfig(
+            min_replicas=0, max_replicas=1,
+            target_ongoing_requests=SERVE_SCORE_BATCH,
+            signal_staleness_s=2.0))
+    serve_api.run(dep.bind(), route_prefix="/score")
+    time.sleep(2.0)
+    seen = [_running(serve_api, "scorer")]
+    if seen != [0]:
+        raise AssertionError(f"(c) the scorer is not parked: {seen}")
+    url = f"http://127.0.0.1:{port}/score"
+    t0 = time.perf_counter()
+    done = []
+    answers = [None] * SERVE_SCORE_N
+
+    def one(i):
+        answers[i] = _post(url, {"tokens": prompts[i]})
+        done.append(time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(SERVE_SCORE_N)]
+    for t in threads:
+        t.start()
+    while any(t.is_alive() for t in threads):
+        n = _running(serve_api, "scorer")
+        if n != seen[-1]:
+            seen.append(n)
+        time.sleep(0.25)
+    burst_s = time.perf_counter() - t0
+    if None in answers or len(done) != SERVE_SCORE_N:
+        raise AssertionError("(b) a scorer request failed")
+    deadline = time.perf_counter() + SERVE_PARK_S
+    while time.perf_counter() < deadline:
+        n = _running(serve_api, "scorer")
+        if n != seen[-1]:
+            seen.append(n)
+        if n == 0:
+            break
+        time.sleep(0.25)
+    park_s = time.perf_counter() - t0 - burst_s
+    outs = [json.loads(a[2]) for a in answers]
+    gaps = [float((torch.frombuffer(bytearray(base64.b64decode(o["logits"])),
+                                    dtype=torch.float32) - r).abs().max())
+            for o, r in zip(outs, refs)]
+    forwards = max(o["forwards"] for o in outs)
+    final = next(tuple(o["launches"]) for o in outs
+                 if o["forwards"] == forwards)
+    batches = sorted(o["batch"] for o in outs)
+    log(f"[serve] (b)+(c) scorer (gpt2.forward at T={SERVE_SCORE_T}, "
+        f"@serve.batch max {SERVE_SCORE_BATCH}, min_replicas=0): replicas "
+        f"seen {seen}; {SERVE_SCORE_N} concurrent HTTP requests on the "
+        f"parked deployment: cold first answer {min(done):.2f} s (the wake: "
+        f"worker start, torch import, CUDA context, model build), all in "
+        f"{burst_s:.2f} s, answered by pids {sorted({o['pid'] for o in outs})}"
+        f"; parked again {park_s:.2f} s after the burst; batch sizes "
+        f"{batches}, forwards {forwards}; logits vs this process's B=1 "
+        f"forward max |d| {max(gaps):.4g} (tol {TOL_LOGITS}); launches "
+        f"K1/K2/K3 in the replica {final} (want "
+        f"{(cfg.n_layer * forwards, 0, 0)}); {card}")
+    if seen != [0, 1, 0]:
+        raise AssertionError(f"(c) replicas went {seen}, not [0, 1, 0]")
+    if max(gaps) > TOL_LOGITS:
+        raise AssertionError("(b) the scorer's logits differ")
+    if max(batches) < 2:
+        raise AssertionError("(b) no forward batched two requests")
+    for o in outs:
+        _runtime_launch_check("scorer replica", o["launches"],
+                              (cfg.n_layer * o["forwards"], 0, 0))
+    return {f"{PRESET} serve scorer (batched, woken from zero)": final}
+
+
+def phase_serve_plane(card: str) -> dict:
+    """The serve control plane on the card (phase 18). Returns the
+    scorer's launches, counted in its own process."""
+    from ray_tpu_torch.cluster_utils import Cluster
+    import ray_tpu_torch as rt
+
+    c = None
+    try:
+        t0 = time.perf_counter()
+        c = Cluster(num_cpus=0)
+        c.add_node(num_cpus=4, num_gpus=2)
+        c.connect()
+        c.wait_for_nodes(2)
+        port = serve.start()
+        log(f"[serve] head (no GPU) + a daemon of 2 GPUs on the one card up, "
+            f"HTTP proxy on port {port}, in {time.perf_counter() - t0:.2f} "
+            f"s; cluster {rt.cluster_resources()}")
+        t0 = time.perf_counter()
+        _serve_llm(rt, serve, card, port)
+        log(f"[serve] (a) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        paths = _serve_scorer(rt, serve, card, port)
+        log(f"[serve] (b)+(c) {time.perf_counter() - t0:.1f} s")
+        return paths
+    finally:
+        try:
+            serve.shutdown()
+            rt.shutdown()
+        finally:
+            if c is not None:
+                c.shutdown()
+                left, segs = c.processes(), c.segments()
+                log(f"[serve] shutdown: processes left {left}, segments "
+                    f"left {segs}")
+                if left or segs:
+                    raise AssertionError("the cluster leaked")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4936,6 +5374,13 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(phase_compiled(card))
     log(f"[compiled] phase {time.perf_counter() - t0:.1f} s; script so far "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # the serve control plane: the scorer's launches, counted in its own
+    # process from 0
+    t0 = time.perf_counter()
+    paths.update(phase_serve_plane(card))
+    log(f"[serve] phase {time.perf_counter() - t0:.1f} s; script so far "
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"[paths] K1/K2/K3 launches by path: {paths}")
 

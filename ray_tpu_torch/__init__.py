@@ -54,7 +54,14 @@ Ported so far:
   collective group (`util.collective.kv_group`), the weight plane
   (`serve.weight_store`: peer cold start for `LLMEngine(checkpoint=...)`,
   LoRA adapters) and the cluster prefix tier (`serve.prefix_store`,
-  `LLMServer(cluster_prefix_cache=True)`), `serve.disagg.PrefillServer`.
+  `LLMServer(cluster_prefix_cache=True)`), `serve.disagg.PrefillServer`;
+- compiled DAGs on native ring channels (`dag`) and the channel-driven
+  1F1B pipeline (`parallel.pipeline`);
+- the serve control plane (`serve`: `run`, `deployment`, the controller,
+  replicas pinned by `visible_devices`, `DeploymentHandle`, the HTTP
+  proxy with live-signal routing and SLO admission, `@serve.batch`,
+  `@serve.multiplexed`, autoscaling with scale to zero, declarative
+  configs, `serve.llm.build_llm_deployment` / `build_openai_app`).
 
 The runtime API (`init`, `remote`, `get`, ...) loads on first use, so
 `import ray_tpu_torch` stays cheap.

@@ -155,6 +155,7 @@ class CoreClient:
         # staging dedup (freed with the device object)
         self._device_snapshots: Dict[ObjectID, ObjectMeta] = {}
         self._staging: Dict[ObjectID, asyncio.Future] = {}
+        self._conn_opening: Dict[Tuple[str, int], asyncio.Future] = {}
         # worker leases for direct task pushes (reference
         # NormalTaskSubmitter lease reuse): shape key -> _Lease
         self._leases: Dict[tuple, "_Lease"] = {}
@@ -432,35 +433,44 @@ class CoreClient:
             raise FileNotFoundError(f"device object {oid} not here") from None
         meta = self._device_snapshots.get(oid)
         if meta is None:
-            from ray_tpu_torch.core import device_transport
-
             task = self._staging.get(oid)
             if task is None:  # concurrent fetchers share one staging
                 task = asyncio.ensure_future(
-                    asyncio.get_running_loop().run_in_executor(
-                        None, device_transport.stage_snapshot,
-                        self, oid, value))
-                self._staging[oid] = task
-                task.add_done_callback(
-                    lambda t, o=oid: self._staging.pop(o, None))
+                    self._stage_device_object(oid, value))
+                if not task.done():
+                    self._staging[oid] = task
             meta = await asyncio.shield(task)
             if not self.device_store.contains(oid):
+                # freed after the staging recorded the snapshot: the free
+                # handler released it
+                raise FileNotFoundError(f"device object {oid} freed")
+        return {"meta": meta}
+
+    async def _stage_device_object(self, oid: ObjectID, value):
+        """Stage one snapshot of a device object in an executor thread and
+        record it. The record and the end of the staging entry happen in
+        one step of this loop, so no fetch sees neither (a fetch between
+        the two would stage a second snapshot)."""
+        from ray_tpu_torch.core import device_transport
+
+        try:
+            meta = await asyncio.get_running_loop().run_in_executor(
+                None, device_transport.stage_snapshot, self, oid, value)
+            if not self.device_store.contains(oid):
                 # freed while we were staging: the free handler saw no
-                # snapshot entry, so the snapshot must be released here or
-                # the shm leaks. Exactly ONE of the concurrent fetchers
-                # sharing this staging task may free it; the check-and-set
-                # is race-free because every waiter resumes on this loop.
-                if not getattr(task, "_orphan_freed", False):
-                    task._orphan_freed = True
-                    try:
-                        self.store.delete_unregistered(meta)
-                    except Exception as e:
-                        print(f"[ray_tpu_torch] freeing orphan snapshot of "
-                              f"{oid.hex()[:12]} failed: {e!r}",
-                              file=sys.stderr, flush=True)
+                # snapshot entry, so the snapshot is released here or the
+                # shm leaks
+                try:
+                    self.store.delete_unregistered(meta)
+                except Exception as e:
+                    print(f"[ray_tpu_torch] freeing orphan snapshot of "
+                          f"{oid.hex()[:12]} failed: {e!r}",
+                          file=sys.stderr, flush=True)
                 raise FileNotFoundError(f"device object {oid} freed")
             self._device_snapshots[oid] = meta
-        return {"meta": meta}
+            return meta
+        finally:
+            self._staging.pop(oid, None)
 
     @staticmethod
     def _device_groups() -> dict:
@@ -1083,12 +1093,30 @@ class CoreClient:
         if addr is None:
             raise ObjectLostError(
                 f"device object {meta.object_id} lost: owner process gone")
-        host, port = addr
-        conn = self._data_conns.get((host, port))
-        if conn is None or conn.closed:
-            conn = await protocol.connect(host, port, name=f"dev-{port}")
-            self._data_conns[(host, port)] = conn
+        conn = await self._owner_conn(tuple(addr))
         return await conn.request(method, **kwargs)
+
+    async def _owner_conn(self, key: Tuple[str, int]):
+        """One connection per owner address, however many callers ask at
+        once: the first opens it, the others await the same opening."""
+        conn = self._data_conns.get(key)
+        if conn is not None and not conn.closed:
+            return conn
+        task = self._conn_opening.get(key)
+        if task is None:
+            async def _open():
+                try:
+                    c = await protocol.connect(key[0], key[1],
+                                               name=f"dev-{key[1]}")
+                    self._data_conns[key] = c
+                    return c
+                finally:
+                    self._conn_opening.pop(key, None)
+
+            task = asyncio.ensure_future(_open())
+            if not task.done():
+                self._conn_opening[key] = task
+        return await asyncio.shield(task)
 
     async def _fetch_device_async(self, meta: ObjectMeta):
         """Ask the owner to stage its snapshot; returns {"meta": snapshot

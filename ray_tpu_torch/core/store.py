@@ -345,18 +345,26 @@ class SharedMemoryStore:
             except KeyError:
                 raise FileNotFoundError(meta.segment) from None
             return SerializedObject.from_view(view)
+        # The view is taken under the lock: a `release` by another thread
+        # then finds the mapping exported and leaves it open (BufferError),
+        # instead of closing it between our lookup and our view.
         with self._lock:
             shm = self._segments.get(meta.segment)
             if shm is not None:
                 self._segments.move_to_end(meta.segment)  # LRU touch
+                view = memoryview(shm.buf)
         if shm is None:
-            shm = shared_memory.SharedMemory(name=meta.segment)
-            _unregister_tracker(shm)
+            fresh = shared_memory.SharedMemory(name=meta.segment)
+            _unregister_tracker(fresh)
             with self._lock:
-                self._segments.setdefault(meta.segment, shm)  # cache attachment
+                # cache attachment
+                shm = self._segments.setdefault(meta.segment, fresh)
+                view = memoryview(shm.buf)
+            if shm is not fresh:
+                fresh.close()
         # NOTE: the returned buffers alias shm memory; callers must copy or
         # finish deserializing before the object is freed.
-        return SerializedObject.from_view(memoryview(shm.buf))
+        return SerializedObject.from_view(view)
 
     def get_raw(self, meta: ObjectMeta, offset: int = 0,
                 length: Optional[int] = None):
@@ -445,14 +453,6 @@ class SharedMemoryStore:
                 shm.close()
             except BufferError:
                 pass  # live memoryviews still reference it; mapping stays
-
-    def release(self, meta: ObjectMeta) -> None:
-        """Drop this process's pin of an arena object it read through
-        `get_serialized` and no longer views (a no-op for other kinds)."""
-        if meta.kind == "arena":
-            arena = self._get_arena()
-            if arena is not None:
-                arena.release(meta.object_id.binary())
 
     def delete_unregistered(self, meta: ObjectMeta) -> None:
         """Free an object this process sealed without registering it with

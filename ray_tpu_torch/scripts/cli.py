@@ -3,12 +3,12 @@
 Counterpart of `ray_tpu/scripts/cli.py` for `start` (a head with
 `--head`, a node daemon with `--address`; `--num-gpus` where the JAX
 package has `--num-tpu-chips`), `stop`, `status`, `list`, `summary`,
-`timeline`, `stack`, `config` and `logs`. Every subcommand but `start`
-and `stop` attaches via --address / RAY_TPU_ADDRESS, or the address the
-last `start --head` on this machine saved. `job`, `top` and `serve` wait
-for the port's job submission, dashboard and serve plane (ROADMAP items
-22 and 18); `up`, `down`, `exec`, `attach` and `rsync` for its cluster
-launcher (item 21).
+`timeline`, `stack`, `config`, `logs` and `serve` (`deploy <config.yaml>`,
+`status`, `shutdown`). Every subcommand but `start` and `stop` attaches via
+--address / RAY_TPU_ADDRESS, or the address the last `start --head` on this
+machine saved. `job` and `top` wait for the port's job submission and
+dashboard (ROADMAP item 22); `up`, `down`, `exec`, `attach` and `rsync` for
+its cluster launcher (item 21).
 
 `stop` stops the processes that `start` on this machine recorded under
 the state directory (heads and daemons, through SIGTERM, so each kills its
@@ -311,6 +311,24 @@ def cmd_logs(args) -> None:
         print(line)
 
 
+# ------------------------------------------------------------------- serve
+def cmd_serve(args) -> None:
+    _connect(args)
+    from ray_tpu_torch import serve as serve_api
+
+    if args.serve_cmd == "deploy":
+        from ray_tpu_torch.serve.build_app import deploy_config_file
+
+        names = deploy_config_file(args.config_file)
+        port = serve_api.start()
+        print(f"deployed {', '.join(names)}; http on 127.0.0.1:{port}")
+    elif args.serve_cmd == "status":
+        print(json.dumps(serve_api.status(), indent=2, default=str))
+    elif args.serve_cmd == "shutdown":
+        serve_api.shutdown()
+        print("serve shut down")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ray_tpu_torch.scripts.cli",
@@ -378,6 +396,17 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--tail", type=int, default=None)
     sp.add_argument("--address", default=None)
     sp.set_defaults(fn=cmd_logs)
+
+    sp = sub.add_parser("serve", help="deploy, list or stop serve apps")
+    ssub = sp.add_subparsers(dest="serve_cmd", required=True)
+    sd = ssub.add_parser("deploy")
+    sd.add_argument("config_file")
+    sd.add_argument("--address", default=None)
+    sd.set_defaults(fn=cmd_serve)
+    for name in ("status", "shutdown"):
+        sd = ssub.add_parser(name)
+        sd.add_argument("--address", default=None)
+        sd.set_defaults(fn=cmd_serve)
 
     return p
 

@@ -10,8 +10,8 @@ any replica, warm-start without calling the prefill pool at all.
 
 The decode side, `DisaggLLMServer`, and `build_disagg_llm_deployment` call
 the prefill pool through a serve `DeploymentHandle` and build serve
-deployments: they come with the serve control plane (ROADMAP item 18).
-Until then a `PrefillServer` runs as a plain actor.
+deployments: they are ROADMAP item 18b. A `PrefillServer` runs as a plain
+actor or as the callable of a serve deployment.
 """
 
 from __future__ import annotations
@@ -111,7 +111,7 @@ class PrefillServer:
 
     def live_signal_extra(self) -> dict:
         """Resident-prefix routing hint for this replica's load row (read
-        by the serve router's prefix-affinity pick, ROADMAP item 18)."""
+        by the serve router's prefix-affinity pick, `serve/handle.py`)."""
         if self.engine.kv is None:
             return {}
         return {"prefix_roots":

@@ -14,6 +14,8 @@ request can wait for such a blob (a prefix future) while other lanes decode.
 requests at once so they share steps); `OpenAIServer` serves /v1/models,
 /v1/completions and /v1/chat/completions, streaming included, with LoRA
 adapters merged into per-adapter engines under an LRU.
+`build_llm_deployment` and `build_openai_app` wrap them as serve
+deployments (`serve.run(app, route_prefix=...)`).
 """
 
 from __future__ import annotations
@@ -1159,3 +1161,57 @@ class OpenAIServer(LLMServer):
         for eng in engines:
             eng.shutdown()
         super().shutdown()
+
+
+def build_openai_app(preset: str = "gpt2-tiny", max_batch: int = 4,
+                     max_seq_len: int = 128, num_replicas: int = 1,
+                     model_id: str = "ray-tpu-llm",
+                     model_overrides: Optional[dict] = None,
+                     num_gpus: int = 0,
+                     checkpoint: Optional[str] = None,
+                     slo_config: Optional[dict] = None,
+                     **engine_kwargs):
+    """Deployment graph for an OpenAI-compatible server (reference
+    `ray.serve.llm.build_openai_app`); run with
+    `serve.run(app, route_prefix="/v1")`. `num_gpus` is each replica's GPU
+    request, where the JAX package has `num_tpu_chips`; the engine runs on
+    CUDA inside the replica (and raises where there is none) unless
+    `device` in `engine_kwargs` says otherwise."""
+    from ray_tpu_torch.serve.api import deployment
+
+    actor_options = {"num_cpus": 1}
+    if num_gpus:
+        actor_options["num_gpus"] = num_gpus
+    dep = deployment(OpenAIServer, name=f"openai-{model_id}",
+                     num_replicas=num_replicas,
+                     ray_actor_options=actor_options,
+                     max_ongoing_requests=max_batch * 2,
+                     slo_config=slo_config)
+    return dep.bind(model_id=model_id, preset=preset, max_batch=max_batch,
+                    max_seq_len=max_seq_len, model_overrides=model_overrides,
+                    checkpoint=checkpoint, **engine_kwargs)
+
+
+def build_llm_deployment(preset: str = "gpt2-tiny", max_batch: int = 4,
+                         max_seq_len: int = 128, num_replicas: int = 1,
+                         name: str = "llm",
+                         model_overrides: Optional[dict] = None,
+                         num_gpus: int = 0,
+                         checkpoint: Optional[str] = None,
+                         slo_config: Optional[dict] = None,
+                         **engine_kwargs):
+    """Deployment for an LLM server (reference build_openai_app analog);
+    `num_gpus` and `device` as in `build_openai_app`."""
+    from ray_tpu_torch.serve.api import deployment
+
+    actor_options = {"num_cpus": 1}
+    if num_gpus:
+        actor_options["num_gpus"] = num_gpus
+    dep = deployment(
+        LLMServer, name=name, num_replicas=num_replicas,
+        ray_actor_options=actor_options,
+        max_ongoing_requests=max_batch * 2,
+        slo_config=slo_config)
+    return dep.bind(preset=preset, max_batch=max_batch,
+                    max_seq_len=max_seq_len, model_overrides=model_overrides,
+                    checkpoint=checkpoint, **engine_kwargs)

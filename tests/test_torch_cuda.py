@@ -956,3 +956,116 @@ def test_compiled_pipeline_across_cards(cuda):
         assert sorted(r["cards"]) == everyone, (kind, r["cards"])
         assert r["gap"] <= chip_smoke.TOL_TRAIN_LOSS, (kind, r["losses"])
         assert len(set(r["nodes"])) == 4 and r["rings"] == []
+
+
+def _post_json(url, body, timeout=300):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+@pytest.mark.cuda
+def test_serve_openai_app_on_the_card(cuda):
+    # build_openai_app on one num_gpus=1 replica, its engine on the card by
+    # default (no device given): the greedy completion over HTTP equals the
+    # same OpenAIServer's in this process on the card; nothing of the
+    # session is left after serve.shutdown and the runtime's
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import OpenAIServer, build_openai_app
+
+    engine = dict(preset="gpt2-125m", max_batch=2, max_seq_len=256, seed=0)
+    body = {"prompt": "the serve plane on the card", "max_tokens": 16,
+            "temperature": 0.0}
+    local = OpenAIServer(model_id="m", **engine)
+    try:
+        class _Req:
+            path, json = "/v1/completions", body
+
+        want = local(_Req())["choices"][0]["text"]
+    finally:
+        local.shutdown()
+    rt.init(num_cpus=4)
+    try:
+        assert rt.cluster_resources().get("GPU", 0) >= 1
+        serve.run(build_openai_app(model_id="m", num_gpus=1, **engine),
+                  route_prefix="/v1")
+        port = serve.start()
+        status, got = _post_json(f"http://127.0.0.1:{port}/v1/completions",
+                                 body)
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    assert status == 200
+    assert got["choices"][0]["text"] == want
+    assert got["usage"]["completion_tokens"] == 16
+
+
+@pytest.mark.cuda
+def test_serve_replicas_across_cards(cuda):
+    # two cluster_utils daemons of one card each (CUDA_VISIBLE_DEVICES "0"
+    # and "1"), build_llm_deployment's two num_gpus=1 replicas one on each:
+    # distinct card uuids, and the greedy tokens of each equal one card's
+    # server in this process; nothing of the session left after shutdown
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: one replica a card")
+    engine = dict(preset="gpt2-125m", max_batch=2, max_seq_len=512, seed=0,
+                  prefill_chunk_size=64)
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, 257, (n,), generator=g).tolist()
+               for n in (96, 200)]
+    local = LLMServer(**engine)
+    try:
+        want = [local({"prompt_ids": p, "max_tokens": 24})["choices"][0]
+                ["token_ids"] for p in prompts]
+    finally:
+        local.shutdown()
+
+    class CardServer(LLMServer):
+        def card(self):
+            import os as _os
+
+            import torch as _torch
+
+            dev = _torch.cuda.current_device()
+            return (_os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    str(_torch.cuda.get_device_properties(dev).uuid))
+
+    c = Cluster(num_cpus=0)
+    try:
+        for vis in ("0", "1"):
+            c.add_node(num_cpus=2, num_gpus=1,
+                       env={"CUDA_VISIBLE_DEVICES": vis})
+        c.connect()
+        c.wait_for_nodes(3)
+        dep = serve.deployment(CardServer, name="cards", num_replicas=2,
+                               ray_actor_options={"num_cpus": 1,
+                                                  "num_gpus": 1})
+        serve.run(dep.bind(**engine))
+        table = rt.get(rt.get_actor("serve-controller")
+                       .get_routing_table.remote("cards"), timeout=60)
+        replicas = list(table["replicas"].values())
+        cards = rt.get([r.handle_request.remote("card", (), {})
+                        for r in replicas], timeout=300)
+        got = [[rt.get(r.handle_request.remote(
+                    "__call__", ({"prompt_ids": p, "max_tokens": 24},), {}),
+                    timeout=300)["choices"][0]["token_ids"] for p in prompts]
+               for r in replicas]
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+        c.shutdown()
+    assert c.processes() == [] and c.segments() == []
+    assert len(replicas) == 2
+    assert sorted(vis for vis, _ in cards) == ["0", "1"]
+    assert cards[0][1] != cards[1][1]
+    assert got == [want, want]

@@ -513,6 +513,68 @@ def test_staging_shared_by_threads_of_one_consumer(cluster):
     ray_tpu_torch.kill(owner)
 
 
+def test_fetch_between_staging_end_and_record_shares_the_snapshot(cluster):
+    """A fetch the owner handles after its staging has ended but before the
+    first waiter has resumed still finds that staging's snapshot: one
+    snapshot is staged. The second fetch is started, as an eager task, from
+    a done-callback of the staging, which runs in exactly that window."""
+    import asyncio
+
+    from ray_tpu_torch.core import device_transport as dt
+
+    client = _client()
+    ref = ray_tpu_torch.put_device(torch.arange(MB, dtype=torch.float32))
+    oid = ref.id
+    before = dt.STATS["snapshots_staged"]
+
+    async def two_fetches():
+        loop = asyncio.get_running_loop()
+
+        def fetch():
+            return asyncio.Task(client._on_fetch_device_object(oid.binary()),
+                                loop=loop, eager_start=True)
+
+        first = fetch()
+        injected = []
+        client._staging[oid].add_done_callback(
+            lambda _t: injected.append(fetch()))
+        a = await first
+        b = await injected[0]
+        return a["meta"], b["meta"]
+
+    a, b = client._call(two_fetches(), timeout=60)
+    assert dt.STATS["snapshots_staged"] - before == 1
+    assert a.object_id == b.object_id and a.segment == b.segment
+    assert client._device_snapshots[oid].object_id == a.object_id
+    del ref
+
+
+@ray_tpu_torch.remote
+class ShmOwner:
+    def ones(self, n):
+        from ray_tpu_torch.core.api import _global_client
+
+        _global_client().store._arena = False   # results take shm segments
+        return np.ones(n, dtype=np.uint8)
+
+
+def test_free_closes_the_mapping_of_a_shm_object(cluster):
+    """`free` drops the freeing process's mapping of a shm-kind object it
+    read (the owner's arena switched off, so the result takes a segment of
+    its own): the segment leaves the driver's `_segments`."""
+    client = _client()
+    owner = ShmOwner.remote()
+    ref = owner.ones.remote(2 * MB)
+    got = ray_tpu_torch.get(ref, timeout=60)
+    assert got.shape == (2 * MB,) and int(got[::4096].sum()) == 512
+    del got
+    meta = client.local_metas[ref.id]
+    assert meta.kind == "shm" and meta.segment in client.store._segments
+    client.free([ref])
+    assert meta.segment not in client.store._segments
+    ray_tpu_torch.kill(owner)
+
+
 # runs last: it replaces the module's runtime with a cluster of its own
 def test_device_object_across_nodes_under_isolation(cluster):
     """Store isolation: a device object owned on node A is got bit-equal

@@ -2,9 +2,11 @@
 
 In a fresh interpreter, import every module of ray_tpu_torch and chip_smoke
 (as a module: its main() does not run), then look at sys.modules. The
-runtime's control plane (head, worker, client, API) and the compiled DAGs
-(`ray_tpu_torch.dag`) import no torch either, and the processes the runtime
-starts run the port's own modules.
+runtime's control plane (head, worker, client, API), the compiled DAGs
+(`ray_tpu_torch.dag`) and the serve control plane (`ray_tpu_torch.serve`:
+controller, proxy, router, handle, api, autoscaling, batching, multiplex,
+live signals) import no torch either, and the processes the runtime starts
+run the port's own modules.
 """
 
 import os
@@ -59,7 +61,7 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.parallel.pipeline",
                  "ray_tpu_torch.train.checkpoint",
                  "ray_tpu_torch.train.config", "chip_smoke",
-                 *CORE, *DAG, "ray_tpu_torch.util",
+                 *CORE, *DAG, *SERVE_PLANE, "ray_tpu_torch.util",
                  "ray_tpu_torch.util.metrics",
                  "ray_tpu_torch.util.tracing", "ray_tpu_torch.scripts.cli"):
         assert want in res["imported"]
@@ -80,6 +82,13 @@ CORE = tuple(f"ray_tpu_torch.core.{m}" for m in (
 DAG = ("ray_tpu_torch.dag", *(f"ray_tpu_torch.dag.{m}" for m in (
     "channel", "nodes", "runtime", "compiled")))
 
+# the serve control plane (none of it imports torch; only the user's
+# callable inside a replica does)
+SERVE_PLANE = ("ray_tpu_torch.serve", *(f"ray_tpu_torch.serve.{m}" for m in (
+    "api", "autoscaling", "batching", "build_app", "compiled_chain",
+    "controller", "handle", "live_signals", "multiplex", "proxy",
+    "replica")))
+
 CONTROL_PLANE_PROBE = r"""
 import json, sys
 for name in ("ray_tpu_torch.core.gcs", "ray_tpu_torch.core.head_main",
@@ -88,7 +97,7 @@ for name in ("ray_tpu_torch.core.gcs", "ray_tpu_torch.core.head_main",
              "ray_tpu_torch.util.tracing", "ray_tpu_torch.utils.platform",
              "ray_tpu_torch.dag", "ray_tpu_torch.dag.channel",
              "ray_tpu_torch.dag.nodes", "ray_tpu_torch.dag.runtime",
-             "ray_tpu_torch.dag.compiled"):
+             "ray_tpu_torch.dag.compiled", *SERVE_PLANE):
     __import__(name)
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("torch", "jax", "ray_tpu"))))
@@ -99,7 +108,9 @@ def test_control_plane_imports_no_torch():
     import json
 
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", CONTROL_PLANE_PROBE],
+    out = subprocess.run([sys.executable, "-c",
+                          f"SERVE_PLANE = {SERVE_PLANE!r}\n"
+                          + CONTROL_PLANE_PROBE],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
