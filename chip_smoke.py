@@ -200,11 +200,30 @@ Phases, each reported on its own line:
    Across four cards, tests/test_torch_cuda.py::
    test_compiled_pipeline_across_cards runs (b)'s pipeline a stage a card
    (compiled_pp_cards), every ring crossing nodes.
+19. the compiled ingress, gRPC and disaggregation (phase_serve_compiled):
+   a head with no GPU and a daemon advertising 4 GPUs on the one card;
+   (a) a scorer deployment (2 num_gpus=1 replicas, gpt2.forward at
+   T=1024) served compiled over the proxy's ring chain (lanes 2, entries
+   of up to 4, 4 MiB slots): 8 concurrent then 10 sequential HTTP
+   requests, logits within TOL_LOGITS of this process's B=1 forward, the
+   lanes over both replicas, K1 = 12 x forwards in each, 0 head requests
+   from the proxy over the warm requests, warm ms against a
+   DeploymentHandle; (b) a replica SIGKILLed with 16 requests unanswered:
+   no failure, fence and recompile, seconds to a live chain; (c)
+   build_disagg_llm_deployment at phase 14's engine: prompts a and b over
+   HTTP equal to phase 14's tokens, b warm-started from the cluster
+   store, 0 head requests from the decode replica, TTFT, blob MB and get
+   ms; (d) one gRPC request to the scorer, its logits equal. Across two
+   cards, tests/test_torch_cuda.py::test_serve_disagg_across_cards puts
+   the prefill and decode replicas on daemons of one card each.
 Phase 10 also runs the ring at a ragged chunk (Llama-3-8B widths,
 T=16000 on sp=4: chunks of 4000 padded to 4096, the padded keys masked by
 K1's and K2's kv_len) and holds each padded chunk pair against the plain
 versions; phase 2 also holds the kernels at a head dim of 80, which the
-wrapper pads to 128.
+wrapper pads to 128, and at head dims of 256 and 160 (B=2 H=8 T=2048 bf16
+causal; 160 padded to 256), where each kernel's grid doubles and a block
+owns 128 of the output columns; phase 1 gates the Dh=256 instantiations'
+spills.
 Across cards, tests/test_torch_cuda.py::test_pp_across_cards runs
 `pp_cards`: GPT-2-125M on pp=2 over NCCL on two cards against one process,
 Llama-3-8B at full width on pp=4 over four against one card's no-grad
@@ -221,12 +240,13 @@ that expansion. Phases 4-5 (GPT-2 inference), 5b (the OpenAI server), 6
 (GPT-2 training), 6b's (b) (data-parallel training), 6c's (a) and (c)
 (sharded training), 7, 8, 9, each case of 10, 11, 12 and 13's (b) are
 the main paths: every kernel's launch count is set to 0 before each and read right
-after; in phases 14-18 each actor, task or replica counts its own launches
+after; in phases 14-19 each actor, task or replica counts its own launches
 from 0. The line before the last lists the kernels as JSON, with the GPT-2
 training path's counts under "launches", every path's under
 "launches_by_path", the ring's non-causal chunk pair under "ring_chunk",
-its ragged one under "ring_ragged_chunk" and the head dim 80 case under
-"head_dim_80"; the last line is {"ok": true, "device": {...}}.
+its ragged one under "ring_ragged_chunk" and the head dim 80, 256 and 160
+cases under "head_dim_80", "head_dim_256" and "head_dim_160"; the last
+line is {"ok": true, "device": {...}}.
 Any failure raises and the script exits non-zero without that line. Needs
 one CUDA card; imports nothing of JAX.
 
@@ -245,6 +265,7 @@ import os
 import re
 import shutil
 import gc
+import signal
 import statistics
 import subprocess
 import sys
@@ -525,8 +546,10 @@ PP_SPAWN_S = 900
 # first case is the GPT-2 training main path's own shape and layout (its
 # K1, K2, K3 records fill the kernels line); the second is the GPT-2
 # forward's; then the Llama paths' (LLAMA_SHAPES), after the earlier cases
-# so that those draw the inputs they always drew, and a head dim of 80
-# (phi-2's widths), which the wrapper pads to the kernels' 128.
+# so that those draw the inputs they always drew, a head dim of 80
+# (phi-2's widths), which the wrapper pads to the kernels' 128, and head
+# dims of 256 (Gemma's) and 160, which it pads to 256, where each kernel's
+# grid doubles and a block owns 128 of the output columns.
 KERNEL_CASES = [
     ("train-path", 24, 12, 1024, 64, torch.bfloat16, True, "qkv"),
     ("forward-path", 4, 12, 1024, 64, torch.bfloat16, True, "qkv"),
@@ -543,6 +566,8 @@ KERNEL_CASES = [
     ("tinyllama-train", 8, 32, 2048, 64, torch.bfloat16, True, "gqa8"),
     ("llama3-8b-forward", 1, 32, 4096, 128, torch.bfloat16, True, "gqa4"),
     ("dh80", 2, 32, 2048, 80, torch.bfloat16, True, "contiguous"),
+    ("dh256", 2, 8, 2048, 256, torch.bfloat16, True, "contiguous"),
+    ("dh160", 2, 8, 2048, 160, torch.bfloat16, True, "contiguous"),
 ]
 # the Llama paths' kernel cases, reported in the kernels line beside the
 # GPT-2 training path's
@@ -632,11 +657,14 @@ def gpu_line() -> str:
 
 
 # --------------------------------------------------------------- phases
-# the main paths' K1, K2 and K3 instantiations: they must not spill (Dh=64:
-# GPT-2 and tinyllama; Dh=128: llama3-8b's forward and the MoE's training)
-MAIN_PATH_MMA = tuple(f"flash_{k}_mma_kernel<bf16, Dh={dh}>"
-                      for dh in (64, 128)
-                      for k in ("fwd", "bwd_dq", "bwd_dkv"))
+# the K1, K2 and K3 instantiations that must not spill: the main paths'
+# (Dh=64: GPT-2 and tinyllama; Dh=128: llama3-8b's forward and the MoE's
+# training) and every Dh=256 one, bf16 and f32 (the split-column design
+# keeps a block to Dh=128's accumulators)
+NO_SPILL = tuple(f"flash_{k}_mma_kernel<bf16, Dh={dh}>"
+                 for dh in (64, 128, 256)
+                 for k in ("fwd", "bwd_dq", "bwd_dkv")) + tuple(
+    f"flash_{k}_kernel<f32, Dh=256>" for k in ("fwd", "bwd_dq", "bwd_dkv"))
 # a kernel instantiation's mangled name: the FMA kernels are templates on
 # the type and Dh, the tensor-core (mma) ones on Dh alone (bf16)
 _KERNEL_NAME = re.compile(
@@ -701,8 +729,8 @@ def _tensor_core_counts(lib: str) -> dict:
 def phase_build() -> None:
     """Build every kernel; print registers, spills and tensor-core
     instructions per instantiation. Fails if a bf16 (tensor-core)
-    instantiation of K1, K2 or K3 has no tensor-core instruction, or if a
-    main path's (bf16, Dh=64 or 128) K1, K2 or K3 spills."""
+    instantiation of K1, K2 or K3 has no tensor-core instruction, or if one
+    in NO_SPILL (the main paths' bf16 Dh=64 and 128, every Dh=256) spills."""
     t0 = time.perf_counter()
     info = _kernels.build_all()
     log(f"[build] {len(info)} kernel(s) built in "
@@ -711,7 +739,7 @@ def phase_build() -> None:
         for inst, (regs, st, ld) in _ptxas_summary(rec["log"]).items():
             log(f"[build] {name}: {inst}: {regs} registers, {st} bytes spill "
                 f"stores, {ld} bytes spill loads")
-            if inst in MAIN_PATH_MMA and (st or ld):
+            if inst in NO_SPILL and (st or ld):
                 raise AssertionError(f"{inst} spills")
         for inst, n in _tensor_core_counts(_kernels._lib_path(name)).items():
             log(f"[build] {name}: {inst}: {n} tensor-core instructions "
@@ -5087,6 +5115,7 @@ def _serve_llm(rt, serve_api, card: str, port: int) -> None:
                     ms[name, kind].append(1e3 * (time.perf_counter() - t0))
         med = {k: statistics.median(v) for k, v in ms.items()}
         ttft_in, whole_in, toks_in = _inproc_ttft(server, prompts[0])
+        RUNTIME_REF["inproc_ttft_ms"] = ttft_in * 1e3
     finally:
         server.shutdown()
     serve_api.delete("llm")
@@ -5260,6 +5289,434 @@ def phase_serve_plane(card: str) -> dict:
                     raise AssertionError("the cluster leaked")
 
 
+# ------------------- phase 19: the compiled ingress, gRPC, disaggregation
+# One node daemon advertising 4 GPUs on the one card, under a head with
+# none; the scorer's two replicas and the disaggregated app's two (prefill
+# and decode) cold-start together. (a) a scorer deployment served compiled
+# (serve.run(..., compiled=True)): the HTTP proxy writes requests into its
+# chain's rings, each entry one gpt2.forward (K1 once a layer) at T=1024
+# over up to 4 requests, last-token logits back as host bytes (a batch of
+# 4 is 1.07 MB of base64, so the rings get 4 MiB slots); (b) one scorer
+# replica SIGKILLed under load; (c) build_disagg_llm_deployment at phase
+# 14's engine configuration; (d) the gRPC ingress to the compiled scorer.
+# Each replica counts its own launches from 0.
+SC_T = 1024
+SC_CHAIN = {"lanes": 2, "batch_max": 4, "max_inflight": 2,
+            "channel_capacity": 4 << 20}
+SC_N = 8                  # concurrent HTTP requests in (a)
+SC_SEQ = 10               # sequential warm requests, audited and timed
+SC_FAILOVER_N = 16        # requests in flight across (b)'s kill
+SC_LIVE_S = 120           # this phase's own deadline for a live chain
+SC_WARM_PROMPT = 5        # (c)'s fresh prompt for the TTFT
+
+
+class ChainScorer:
+    """(a) The compiled scorer's callable: one gpt2.forward (flash: K1 once
+    a layer) on the seeded GPT-2-125M params over a ring entry's requests
+    (`batch_call`, what the chain's replica stage calls) or over one
+    request (`__call__`, the dynamic path's). Each answer carries its
+    request's last-position logits as float32 bytes (base64: host data,
+    JSON for the HTTP reply) and this replica's counts after the forward."""
+
+    def __init__(self):
+        _no_tf32()
+        self.cfg = gpt2.GPT2Config.preset(PRESET, attn_impl="flash",
+                                          remat=False)
+        self.params = gpt2.init_params(torch.Generator().manual_seed(0),
+                                       self.cfg, DEVICE)
+        self.forwards = 0
+        _zero_counts()
+
+    def batch_call(self, requests) -> list:
+        import base64
+
+        ids = torch.tensor([r.get("tokens") for r in requests],
+                           device=DEVICE)
+        with torch.inference_mode():
+            last = gpt2.forward(self.params, ids, self.cfg)[:, -1]
+            last = last.float().cpu()
+        self.forwards += 1
+        counts = _flash_counts()
+        return [{"logits": base64.b64encode(row.numpy().tobytes()).decode(),
+                 "batch": len(requests), "forwards": self.forwards,
+                 "launches": counts, "pid": os.getpid()} for row in last]
+
+    def __call__(self, request):
+        return self.batch_call([request])[0]
+
+    def counts(self) -> tuple:
+        return self.forwards, _flash_counts(), os.getpid()
+
+
+def _logits_gap(out: dict, ref) -> float:
+    import base64
+
+    got = torch.frombuffer(bytearray(base64.b64decode(out["logits"])),
+                           dtype=torch.float32)
+    return float((got - ref).abs().max())
+
+
+def _chain_live(rt, proxy, dep: str, gen0: int = -1) -> tuple:
+    """(seconds, chain_status) once the proxy's chain for `dep` is live at
+    a generation past gen0; raises past SC_LIVE_S."""
+    t0 = time.perf_counter()
+    st = {}
+    while time.perf_counter() - t0 < SC_LIVE_S:
+        st = rt.get(proxy.chain_status.remote(dep), timeout=60)
+        if st.get("live") and st["generation"] > gen0:
+            return time.perf_counter() - t0, st
+        time.sleep(0.05)
+    raise AssertionError(f"the chain of {dep} is not live: {st}")
+
+
+def _head_reqs(events) -> list:
+    return [m for k, m in events if k == "req"]
+
+
+def _scorer_first(rt, port: int, prompts) -> dict:
+    """(a)'s first request: it takes the dynamic path and starts the
+    chain, whose going live is awaited. Returns its answer."""
+    url = f"http://127.0.0.1:{port}/score19"
+    t0 = time.perf_counter()
+    first = json.loads(_post(url, {"tokens": prompts[0]})[2])
+    live_s, st = _chain_live(rt, rt.get_actor("serve-proxy"), "score19")
+    log(f"[serve19] (a) first request (dynamic route) answered, chain live "
+        f"{live_s:.2f} s later ({time.perf_counter() - t0:.2f} s in all): "
+        f"generation {st['generation']}, lanes {st['lane_targets']}")
+    return first
+
+
+def _scorer_compiled(rt, serve_api, card: str, port: int, refs, prompts,
+                     first: dict) -> dict:
+    """(a) and (b): the compiled route's answers, lanes, launches and head
+    RPCs, its warm time against a handle's, then the failover drill.
+    Returns the replicas' launches, counted in their own processes."""
+    url = f"http://127.0.0.1:{port}/score19"
+    proxy = rt.get_actor("serve-proxy")
+    n_layer = gpt2.GPT2Config.preset(PRESET).n_layer
+    answers = _concurrent(lambda p: _post(url, {"tokens": p}),
+                          [(p,) for p in prompts[:SC_N]])
+    errors = [e for _, e in answers if e is not None]
+    if errors:
+        raise AssertionError(f"(a) concurrent requests failed: {errors}")
+    outs = [json.loads(r[2]) for r, _ in answers]
+    gaps = [_logits_gap(first, refs[0])] + [
+        _logits_gap(o, refs[i]) for i, o in enumerate(outs)]
+
+    # warm: the compiled route and a handle in turns; the proxy's head
+    # RPCs audited over the compiled requests
+    h = serve_api.get_deployment_handle("score19")
+    h.remote({"tokens": prompts[0]}).result(timeout=SERVE_WAIT_S)
+    ms = {"compiled": [], "handle": []}
+    if not rt.get(proxy.rpc_audit_start.remote(), timeout=60):
+        raise AssertionError("(a) the proxy's audit did not start")
+    try:
+        for i in range(SC_SEQ):
+            body = {"tokens": prompts[i % len(prompts)]}
+            t0 = time.perf_counter()
+            out = json.loads(_post(url, body)[2])
+            ms["compiled"].append(1e3 * (time.perf_counter() - t0))
+            gaps.append(_logits_gap(out, refs[i % len(refs)]))
+            t0 = time.perf_counter()
+            out = h.remote(body).result(timeout=SERVE_WAIT_S)
+            ms["handle"].append(1e3 * (time.perf_counter() - t0))
+            gaps.append(_logits_gap(out, refs[i % len(refs)]))
+    finally:
+        events = rt.get(proxy.rpc_audit_stop.remote(), timeout=60)
+    st = rt.get(proxy.chain_status.remote("score19"), timeout=60)
+    table = rt.get(rt.get_actor("serve-controller").get_routing_table.remote(
+        "score19"), timeout=60)
+    counts = {tag: rt.get(r.handle_request.remote("counts", (), {}),
+                          timeout=60)
+              for tag, r in table["replicas"].items()}
+    lane_tags = {t for lane in st["lane_targets"] for _d, t in lane}
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    batches = sorted(o["batch"] for o in outs)
+    log(f"[serve19] (a) compiled scorer (gpt2.forward at T={SC_T}, "
+        f"{SC_CHAIN}): {SC_N} concurrent + {SC_SEQ} sequential HTTP "
+        f"requests; logits vs this process's B=1 forward max |d| "
+        f"{max(gaps):.4g} (tol {TOL_LOGITS}); entry sizes of the burst "
+        f"{batches}; chain stats {st['stats']}, lanes over replicas "
+        f"{sorted(lane_tags)} of {sorted(table['replicas'])}; replicas' "
+        f"(forwards, K1/K2/K3 launches, pid) {counts}; head requests from "
+        f"the proxy over the {SC_SEQ} warm requests "
+        f"{_head_reqs(events)}; warm request median ms: compiled route "
+        f"(HTTP) {med['compiled']:.3f}, DeploymentHandle "
+        f"{med['handle']:.3f} (each x {SC_SEQ}, in turns; compiled "
+        f"{[round(x, 2) for x in ms['compiled']]}, handle "
+        f"{[round(x, 2) for x in ms['handle']]}); {card}")
+    if max(gaps) > TOL_LOGITS:
+        raise AssertionError("(a) the compiled scorer's logits differ")
+    if not st.get("live") or st["stats"]["compiled"] < SC_N:
+        raise AssertionError(f"(a) requests did not ride the chain: {st}")
+    if lane_tags != set(table["replicas"]) or len(lane_tags) != 2:
+        raise AssertionError(f"(a) the lanes miss a replica: {st}")
+    if _head_reqs(events):
+        raise AssertionError(f"(a) the warm compiled route made head "
+                             f"requests: {_head_reqs(events)}")
+    paths = {}
+    for tag, (forwards, launches, _pid) in counts.items():
+        _runtime_launch_check(f"compiled scorer replica {tag}", launches,
+                              (n_layer * forwards, 0, 0))
+        if forwards < 1:
+            raise AssertionError(f"(a) replica {tag} ran no forward")
+        paths[f"{PRESET} compiled scorer replica {tag}"] = launches
+
+    # (b) SIGKILL one replica with SC_FAILOVER_N requests in flight: the
+    # kill lands as the first of them answers (the burst takes ~0.1 s)
+    gen0, stats0 = st["generation"], dict(st["stats"])
+    victim = counts[sorted(counts)[0]][2]
+    done, t_kill, at_kill = [], [None], [None]
+
+    def one(p):
+        out = _post(url, {"tokens": p})
+        done.append(1)
+        return out
+
+    def kill():
+        deadline = time.perf_counter() + SERVE_WAIT_S
+        while not done and time.perf_counter() < deadline:
+            time.sleep(0.0005)
+        os.kill(victim, signal.SIGKILL)
+        t_kill[0], at_kill[0] = time.perf_counter(), len(done)
+
+    killer = threading.Thread(target=kill)
+    killer.start()
+    answers = _concurrent(one, [(prompts[i % len(prompts)],)
+                                for i in range(SC_FAILOVER_N)])
+    killer.join()
+    errors = [e for _, e in answers if e is not None]
+    statuses = sorted({r[0] for r, _ in answers if r is not None})
+    fgaps = [_logits_gap(json.loads(r[2]), refs[i % len(refs)])
+             for i, (r, _) in enumerate(answers) if r is not None]
+    live_s, st = _chain_live(rt, proxy, "score19", gen0)
+    back_s = time.perf_counter() - t_kill[0]
+    log(f"[serve19] (b) replica pid {victim} SIGKILLed with "
+        f"{SC_FAILOVER_N - at_kill[0]} of {SC_FAILOVER_N} concurrent "
+        f"requests unanswered: errors {errors}, HTTP "
+        f"statuses {statuses}, logits max |d| "
+        f"{max(fgaps) if fgaps else None} (tol {TOL_LOGITS}); chain live "
+        f"again at generation {st['generation']} (was {gen0}) "
+        f"{back_s:.2f} s after the kill; stats {st['stats']} (before "
+        f"{stats0}), lanes {st['lane_targets']}; {card}")
+    if errors or statuses != [200]:
+        raise AssertionError("(b) a request failed across the replica kill")
+    if at_kill[0] >= SC_FAILOVER_N:
+        raise AssertionError("(b) the kill landed after every answer")
+    if max(fgaps) > TOL_LOGITS:
+        raise AssertionError("(b) logits differ across the failover")
+    if st["stats"]["fenced"] < 1 or st["stats"]["recompiles"] < 2:
+        raise AssertionError(f"(b) no fence and recompile: {st['stats']}")
+    return paths
+
+
+def _disagg(rt, serve_api, card: str, port: int) -> dict:
+    """(c): phase 14's prompts over HTTP through the disaggregated app."""
+    prompts = _rt_prompts()
+    ref = RUNTIME_REF["tokens"]
+    url = f"http://127.0.0.1:{port}/disagg19"
+    dec = serve_api.get_deployment_handle("disagg19")
+    pre = serve_api.get_deployment_handle("disagg19-prefill")
+    t0 = time.perf_counter()
+    out_a = json.loads(_post(url, {"prompt_ids": prompts[0],
+                                   "max_tokens": RUNTIME_NEW})[2])
+    a_s = time.perf_counter() - t0
+    st_a = dec.stats.remote().result(timeout=60)
+    # b shares a's 192-token prefix: publish its whole prompt from the
+    # prefill pool, so the decode replica (which holds 192 tokens of it)
+    # warm-starts the rest from the cluster store
+    res = pre.options(method_name="prefill").remote(prompts[1]).result(
+        timeout=SERVE_WAIT_S)
+    t0 = time.perf_counter()
+    blob = rt.get(res["ref"], timeout=SERVE_WAIT_S)
+    fetch_ms = 1e3 * (time.perf_counter() - t0)
+    blob_mb = (blob["k"].nbytes + blob["v"].nbytes) / 1e6
+    del blob
+    deadline = time.perf_counter() + 60
+    covered = None
+    while time.perf_counter() < deadline:
+        covered = dec.prefix_store_probe.remote(prompts[1][:-1]).result(
+            timeout=60)
+        if covered == res["n_tokens"]:
+            break
+        time.sleep(0.1)
+    _wait_serve_rows(rt, ("disagg19", "disagg19-prefill"))
+    if not dec.rpc_audit_start.remote().result(timeout=60):
+        raise AssertionError("(c) the decode replica's audit did not start")
+    try:
+        out_b = json.loads(_post(url, {"prompt_ids": prompts[1],
+                                       "max_tokens": RUNTIME_NEW})[2])
+    finally:
+        events = dec.rpc_audit_stop.remote().result(timeout=60)
+    st_b = dec.stats.remote().result(timeout=60)
+    fresh = _prompt(SC_WARM_PROMPT, len(prompts[0]))
+    t0 = time.perf_counter()
+    _post(url, {"prompt_ids": fresh, "max_tokens": 1})
+    ttft_ms = 1e3 * (time.perf_counter() - t0)
+    st_c = dec.stats.remote().result(timeout=60)
+    tokens = [out_a["choices"][0]["token_ids"],
+              out_b["choices"][0]["token_ids"]]
+    keys = ("prefill_fetches", "plane_fetches", "store_fetches",
+            "blocks_imported", "local_prefix_hits", "fetch_errors")
+    log(f"[serve19] (c) build_disagg_llm_deployment({PRESET}), 1 prefill + "
+        f"1 decode replica of num_gpus=1: prompt a ({len(prompts[0])} "
+        f"tokens) over HTTP in {a_s:.2f} s, decode stats "
+        f"{ {k: st_a[k] for k in keys} }; prompt b published by the prefill "
+        f"pool ({res['n_tokens']} tokens, blob {blob_mb:.3f} MB, its get "
+        f"into this process {fetch_ms:.2f} ms), the decode replica's store "
+        f"covering {covered}; b over HTTP: stats "
+        f"{ {k: st_b[k] for k in keys} }, head requests from the decode "
+        f"replica {_head_reqs(events)}; tokens of a, b equal to phase 14's "
+        f"server in this process: {tokens == list(ref)}; TTFT (a fresh "
+        f"{len(fresh)}-token prompt, max_tokens=1, over HTTP: prefill RPC, "
+        f"KV ship and import, first token) {ttft_ms:.2f} ms against phase "
+        f"18's in-process engine {RUNTIME_REF.get('inproc_ttft_ms')} ms "
+        f"(prefill_fetches {st_b['prefill_fetches']} -> "
+        f"{st_c['prefill_fetches']}); {card}")
+    if tokens != list(ref):
+        raise AssertionError("(c) the disaggregated tokens differ from "
+                             "phase 14's server in this process")
+    if st_a["prefill_fetches"] < 1 or st_a["blocks_imported"] <= 0:
+        raise AssertionError(f"(c) a did not ship KV: {st_a}")
+    if st_b["store_fetches"] < 1:
+        raise AssertionError(f"(c) b was not served from the store: {st_b}")
+    if _head_reqs(events):
+        raise AssertionError(f"(c) the decode replica's warm path made head "
+                             f"requests: {_head_reqs(events)}")
+    return {"ttft_ms": ttft_ms, "blob_mb": blob_mb, "fetch_ms": fetch_ms}
+
+
+def _wait_serve_rows(rt, deployments, timeout: float = 60.0) -> None:
+    """Until the head has merged a load row of every named deployment (the
+    cluster_view broadcast then carries them to the replicas, whose
+    routers read them instead of asking the head), and a second more."""
+    from ray_tpu_torch.util import state
+
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        seen = {(r.get("stats") or {}).get("deployment")
+                for r in state.list_serve_stats(
+                    filters=[("kind", "=", "serve_replica")])}
+        if set(deployments) <= seen:
+            time.sleep(1.0)
+            return
+        time.sleep(0.2)
+    raise AssertionError(f"no load rows of {deployments} at the head")
+
+
+def _grpc_scorer(port: int, prompts, refs, card: str) -> None:
+    """(d): one request to the compiled scorer through the gRPC ingress
+    (started with the phase)."""
+    import grpc
+
+    from ray_tpu_torch.serve.grpc_proxy import SERVICE
+
+    t0 = time.perf_counter()
+    with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+        call = ch.unary_unary(f"/{SERVICE}/Call", request_serializer=None,
+                              response_deserializer=None)
+        out = json.loads(call(json.dumps({"tokens": prompts[0]}).encode(),
+                              metadata=(("application", "score19"),),
+                              timeout=SERVE_WAIT_S))
+    gap = _logits_gap(out, refs[0])
+    log(f"[serve19] (d) gRPC ingress (port {port}) to the compiled scorer: "
+        f"answered in {time.perf_counter() - t0:.2f} s, logits vs this "
+        f"process's forward max |d| "
+        f"{gap:.4g} (tol {TOL_LOGITS}); {card}")
+    if gap > TOL_LOGITS:
+        raise AssertionError("(d) the gRPC answer's logits differ")
+
+
+def _wait_running(serve_api, want: dict) -> None:
+    """Until each named deployment runs its number of replicas."""
+    deadline = time.perf_counter() + SERVE_WAIT_S
+    running = {}
+    while time.perf_counter() < deadline:
+        st = serve_api.status()
+        running = {d: st.get(d, {}).get("running", 0) for d in want}
+        if running == want:
+            return
+        time.sleep(0.25)
+    raise AssertionError(f"the replicas did not start: {running}")
+
+
+def phase_serve_compiled(card: str) -> dict:
+    """The compiled ingress, failover, disaggregation and gRPC on the card
+    (phase 19). Returns the scorer replicas' launches, counted in their own
+    processes."""
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.serve.disagg import build_disagg_llm_deployment
+    import ray_tpu_torch as rt
+
+    cfg = gpt2.GPT2Config.preset(PRESET, attn_impl="flash", remat=False)
+    params = gpt2.init_params(torch.Generator().manual_seed(0), cfg, DEVICE)
+    prompts = [_prompt(200 + i, SC_T) for i in range(SC_N)]
+    with torch.inference_mode():
+        refs = [gpt2.forward(params, torch.tensor([p], device=DEVICE),
+                             cfg)[0, -1].float().cpu() for p in prompts]
+    del params
+    torch.cuda.empty_cache()
+    c = None
+    try:
+        t0 = time.perf_counter()
+        c = Cluster(num_cpus=0)
+        c.add_node(num_cpus=8, num_gpus=4)
+        c.connect()
+        c.wait_for_nodes(2)
+        port = serve.start()
+        scorer = serve.deployment(
+            ChainScorer, name="score19", num_replicas=2,
+            ray_actor_options={"num_cpus": 1, "num_gpus": 1},
+            max_ongoing_requests=8, chain_config=SC_CHAIN)
+        serve.run(scorer.bind(), route_prefix="/score19", compiled=True,
+                  _blocking=False)
+        engine = dict(max_seq_len=SERVE_WINDOW, seed=0,
+                      prefill_chunk_size=64, kv_block_size=16, kv_blocks=64,
+                      device=DEVICE)
+        serve.run(build_disagg_llm_deployment(
+            PRESET, name="disagg19", prefill_replicas=1, decode_replicas=1,
+            num_gpus=1, **engine), route_prefix="/disagg19", _blocking=False)
+        # the gRPC ingress (an actor of its own) starts meanwhile
+        grpc_port = []
+        starter = threading.Thread(
+            target=lambda: grpc_port.append(serve.start_grpc()))
+        starter.start()
+        # the scorer's first request starts its chain while the
+        # disaggregated replicas still build
+        _wait_running(serve, {"score19": 2})
+        first = _scorer_first(rt, port, prompts)
+        _wait_running(serve, {"score19": 2, "disagg19": 1,
+                              "disagg19-prefill": 1})
+        starter.join(SERVE_WAIT_S)
+        log(f"[serve19] head (no GPU) + a daemon of 4 GPUs on the one card, "
+            f"HTTP proxy on port {port}, gRPC proxy on {grpc_port}; 2 scorer "
+            f"+ 2 disaggregated replicas cold-started together, the chain "
+            f"live, in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        paths = _scorer_compiled(rt, serve, card, port, refs, prompts,
+                                 first)
+        log(f"[serve19] (a)+(b) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _disagg(rt, serve, card, port)
+        log(f"[serve19] (c) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _grpc_scorer(grpc_port[0], prompts, refs, card)
+        log(f"[serve19] (d) {time.perf_counter() - t0:.1f} s")
+        return paths
+    finally:
+        try:
+            serve.shutdown()
+            rt.shutdown()
+        finally:
+            if c is not None:
+                c.shutdown()
+                left, segs = c.processes(), c.segments()
+                log(f"[serve19] shutdown: processes left {left}, segments "
+                    f"left {segs}")
+                if left or segs:
+                    raise AssertionError("the cluster leaked")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5382,6 +5839,13 @@ def main() -> int:
     paths.update(phase_serve_plane(card))
     log(f"[serve] phase {time.perf_counter() - t0:.1f} s; script so far "
         f"{time.perf_counter() - t_start:.1f} s")
+
+    # the compiled ingress, gRPC and disaggregation: each scorer replica's
+    # launches, counted in its own process from 0
+    t0 = time.perf_counter()
+    paths.update(phase_serve_compiled(card))
+    log(f"[serve19] phase {time.perf_counter() - t0:.1f} s; script so far "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(f"[paths] K1/K2/K3 launches by path: {paths}")
 
     # each kernel's records by case: the GPT-2 training path's fill the
@@ -5398,7 +5862,8 @@ def main() -> int:
              launches_by_path={p: c[i] for p, c in paths.items()},
              llama_shapes={n: by_case[n] for n in LLAMA_SHAPES},
              ring_chunk=ring_chunk[i], ring_ragged_chunk=ring_ragged[i],
-             head_dim_80=by_case["dh80"])
+             head_dim_80=by_case["dh80"], head_dim_256=by_case["dh256"],
+             head_dim_160=by_case["dh160"])
         for i, (name, cu, line, by_case) in enumerate(rows)]
     print(card)
     print(json.dumps({"kernels": kernels}))

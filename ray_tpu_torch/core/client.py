@@ -142,6 +142,7 @@ class CoreClient:
         self._closing = False
         self._connected = threading.Event()
         self._connected.set()
+        self._reconnect_task: Optional[asyncio.Task] = None
         # head-scheduled submissions not yet observed complete, keyed by
         # first return id: a restarted head lost its queue, so these are
         # replayed on reconnect (client-side re-queue; bounded FIFO)
@@ -314,7 +315,11 @@ class CoreClient:
                     ch.close(unlink=unlink)
 
             if self._dag_read_pool is not None:
-                self._dag_read_pool.submit(_close)
+                # answer once the ring is unlinked: a caller that kills
+                # this process next (teardown(kill_actors=True)) would
+                # otherwise race the unlink and leave the segment behind
+                await asyncio.get_running_loop().run_in_executor(
+                    self._dag_read_pool, _close)
             else:
                 _close()
         return True
@@ -702,7 +707,11 @@ class CoreClient:
         if not self._connected.is_set():
             return  # a reconnect loop is already running
         self._connected.clear()
-        asyncio.ensure_future(self._reconnect_loop())
+        # held: the loop keeps tasks only weakly, and a reconnect loop
+        # garbage-collected while it awaits its register_worker reply
+        # closes the new connection with it (the head then tears down the
+        # registration it just made, an actor's included) and never retries
+        self._reconnect_task = asyncio.ensure_future(self._reconnect_loop())
 
     async def _reconnect_loop(self) -> None:
         deadline = time.monotonic() + self._reconnect_s

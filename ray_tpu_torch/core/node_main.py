@@ -34,7 +34,7 @@ import signal
 import subprocess
 import sys
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from ray_tpu_torch.core import config as _config
 from ray_tpu_torch.core import protocol
@@ -109,6 +109,7 @@ class NodeDaemon:
         # lost mid-head-outage must not leak the head-side carve-out)
         self.head_epoch = 0
         self._reconnecting = False
+        self._reconnect_task: Optional[asyncio.Task] = None
         self._fr_pending: List[dict] = []
         self._pending_releases: List[dict] = []
         # object data plane: cached copy of the gossiped object directory
@@ -277,7 +278,10 @@ class NodeDaemon:
             return
         self._reconnecting = True
         self._fr("head_lost", epoch=self.head_epoch)
-        asyncio.ensure_future(self._head_reconnect_loop(timeout))
+        # held, as the client's: a pending task the loop holds only weakly
+        # can be garbage-collected mid-handshake
+        self._reconnect_task = asyncio.ensure_future(
+            self._head_reconnect_loop(timeout))
 
     async def _head_reconnect_loop(self, timeout: float) -> None:
         try:

@@ -45,6 +45,19 @@
 // widened to f32 in shared memory, rows padded by one float; every product
 // a scalar FMA with two shared-memory loads, which shared memory's 128 B/clk
 // an SM holds near 9 TFLOP/s.
+//
+// Head dims past 128 (256): as in K1, the grid doubles (`rt_tc::Cols`) and
+// each block owns 128 of the 256 columns of dQ (K2) or of dK and dV (K3),
+// with the accumulators of Dh = 128, while S = q k^T and dP = dO v^T run
+// over the whole head: both blocks of a pair compute them (the cost of the
+// split). Delta is a full-row sum; both K2 blocks of a pair compute it, the
+// first writes it. The bf16 bodies keep full-width tiles in shared memory
+// (K2 203 KB, K3 136 KB) and read their A operands from it each tile. The
+// f32 bodies cannot: four full-width f32 tiles are 263 KB. So they stream
+// the other side's tiles one 128-column half at a time through half-width
+// tiles (K2: K and V; K3: q and dO), summing S and dP over the two halves
+// in registers, the owned half last so that it is resident for dQ += dS K
+// (K2) and dV += P^T dO, dK += dS^T q (K3): 214 KB and 231 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,14 +95,17 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long lon
 
 template <int DH>
 constexpr size_t dq_smem_bytes() {
-  // sQ (q * scale), sDO, sK, sV [64][DH+1]; sDS [BQ][BK+1]
-  return sizeof(float) * (4 * 64 * (DH + 1) + BQ * (BK + 1));
+  // sQ (q * scale), sDO [64][DH+1]; sK, sV [64][DV+1]; sDS [BQ][BK+1]
+  constexpr int DV = rt_tc::Cols<DH>::DV;
+  return sizeof(float) * (2 * 64 * (DH + 1) + 2 * 64 * (DV + 1) + BQ * (BK + 1));
 }
 
 template <int DH>
 constexpr size_t dkv_smem_bytes() {
-  // sK, sV, sQ (q * scale), sDO [64][DH+1]; sP, sDS [BK][BQ+1]; lse, Delta [BQ]
-  return sizeof(float) * (4 * 64 * (DH + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
+  // sK, sV [64][DH+1]; sQ (q * scale), sDO [64][DV+1]; sP, sDS [BK][BQ+1];
+  // lse, Delta [BQ]
+  constexpr int DV = rt_tc::Cols<DH>::DV;
+  return sizeof(float) * (2 * 64 * (DH + 1) + 2 * 64 * (DV + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
 }
 
 // K2, f32. Strides: q, k, v, o, dout. dq: contiguous [B, H, Tq, DH]; lse,
@@ -100,13 +116,15 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const float* __restrict__ o, const float* __restrict__ dout,
     const float* __restrict__ lse, float* __restrict__ dq, float* __restrict__ delta,
     int H, int Tq, int kv_len, Strides st, int causal, float scale) {
-  constexpr int LD = DH + 1;
+  constexpr int DV = rt_tc::Cols<DH>::DV, NH = rt_tc::Cols<DH>::NH;
+  constexpr int LDQ = DH + 1;     // q and dO tiles: the whole head
+  constexpr int LD = DV + 1;      // K and V tiles: one column part
   constexpr int LDS = BK + 1;
-  constexpr int CPT = DH / TPR;   // dQ columns per thread
+  constexpr int CPT = DV / TPR;   // dQ columns per thread
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sDO = sQ + BQ * LD;
-  float* sK = sDO + BQ * LD;
+  float* sDO = sQ + BQ * LDQ;
+  float* sK = sDO + BQ * LDQ;
   float* sV = sK + BK * LD;
   float* sDS = sV + BK * LD;
 
@@ -115,7 +133,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   const int sub = tid % TPR;      // its lane among the row's four threads
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / NH, half = blockIdx.z % NH;  // owns columns half * DV
   const long long bq_ = (long long)b * st.s[0] + (long long)h * st.s[1];
   const long long bk_ = (long long)b * st.s[3] + (long long)h * st.s[4];
   const long long bv_ = (long long)b * st.s[6] + (long long)h * st.s[7];
@@ -134,15 +152,15 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   if (row_ok) {
     const float* orow = o + bo_ + (long long)qpos * st.s[11];
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) {
+    for (int i = 0; i < DH / TPR; ++i) {
       const int d = sub + TPR * i;
-      dl = fmaf(sDO[r * LD + d], orow[d], dl);
+      dl = fmaf(sDO[r * LDQ + d], orow[d], dl);
     }
   }
   dl += __shfl_xor_sync(0xffffffffu, dl, 1);
   dl += __shfl_xor_sync(0xffffffffu, dl, 2);
   const float lse_r = row_ok ? lse[row] : 0.f;
-  if (row_ok && sub == 0) delta[row] = dl;
+  if (row_ok && sub == 0 && half == 0) delta[row] = dl;
 
   float acc[CPT];
 #pragma unroll
@@ -153,25 +171,33 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
 
   for (int jk = 0; jk < num_kb; ++jk) {
     const int k0 = jk * BK;
-    __syncthreads();  // the previous tile's K, V, dS are no longer read
-    load_tile<DH>(sK, k + bk_, st.s[5], k0, kv_len, 1.f);
-    load_tile<DH>(sV, v + bv_, st.s[8], k0, kv_len, 1.f);
-    __syncthreads();
-
-#pragma unroll 4
+    float s[SPT], dp[SPT];
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) s[j] = dp[j] = 0.f;
+    for (int hh = 0; hh < NH; ++hh) {
+      const int part = (half + 1 + hh) % NH;  // the owned part last
+      __syncthreads();  // the previous part's or tile's K, V, dS are no longer read
+      load_tile<DV>(sK, k + bk_ + part * DV, st.s[5], k0, kv_len, 1.f);
+      load_tile<DV>(sV, v + bv_ + part * DV, st.s[8], k0, kv_len, 1.f);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) {
+        const int c = sub + TPR * j;
+#pragma unroll 16
+        for (int d = 0; d < DV; ++d) {
+          s[j] = fmaf(sQ[r * LDQ + part * DV + d], sK[c * LD + d], s[j]);
+          dp[j] = fmaf(sDO[r * LDQ + part * DV + d], sV[c * LD + d], dp[j]);
+        }
+      }
+    }
+#pragma unroll
     for (int j = 0; j < SPT; ++j) {
       const int c = sub + TPR * j;
-      float s = 0.f, dp = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < DH; ++d) {
-        s = fmaf(sQ[r * LD + d], sK[c * LD + d], s);
-        dp = fmaf(sDO[r * LD + d], sV[c * LD + d], dp);
-      }
       const int kpos = k0 + c;
       float ds = 0.f;  // a masked key has P = exp(-1e30 - lse) = 0
       if (kpos < kv_len && !(causal && kpos > qpos)) {
-        const float p = expf(s - lse_r);
-        ds = p * (dp - dl) * scale;
+        const float p = expf(s[j] - lse_r);
+        ds = p * (dp[j] - dl) * scale;
       }
       sDS[r * LDS + c] = ds;
     }
@@ -185,7 +211,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   }
 
   if (row_ok) {
-    float* out = dq + row * DH;
+    float* out = dq + row * DH + half * DV;
 #pragma unroll
     for (int i = 0; i < CPT; ++i) out[sub + TPR * i] = acc[i];
   }
@@ -199,13 +225,15 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
     int H, int Tq, int Tk, Strides st, int causal, float scale) {
-  constexpr int LD = DH + 1;
+  constexpr int DV = rt_tc::Cols<DH>::DV, NH = rt_tc::Cols<DH>::NH;
+  constexpr int LDK = DH + 1;     // K and V tiles: the whole head
+  constexpr int LD = DV + 1;      // q and dO tiles: one column part
   constexpr int LDP = BQ + 1;
-  constexpr int CPT = DH / TPR;   // dK and dV columns per thread
+  constexpr int CPT = DV / TPR;   // dK and dV columns per thread
   extern __shared__ float smem[];
   float* sK = smem;
-  float* sV = sK + BK * LD;
-  float* sQ = sV + BK * LD;
+  float* sV = sK + BK * LDK;
+  float* sQ = sV + BK * LDK;
   float* sDO = sQ + BQ * LD;
   float* sP = sDO + BQ * LD;
   float* sDS = sP + BK * LDP;
@@ -217,7 +245,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   const int sub = tid % TPR;
   const int k0 = blockIdx.x * BK;
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / NH, half = blockIdx.z % NH;  // owns columns half * DV
   const long long bq_ = (long long)b * st.s[0] + (long long)h * st.s[1];
   const long long bk_ = (long long)b * st.s[3] + (long long)h * st.s[4];
   const long long bv_ = (long long)b * st.s[6] + (long long)h * st.s[7];
@@ -237,32 +265,42 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
 
   for (int iq = start_qb; iq < num_qb; ++iq) {
     const int q0 = iq * BQ;
-    __syncthreads();  // the previous tile's Q, dO, P, dS, lse, Delta are no longer read
-    load_tile<DH>(sQ, q + bq_, st.s[2], q0, Tq, scale);
-    load_tile<DH>(sDO, dout + bd_, st.s[11], q0, Tq, 1.f);
-    if (tid < BQ) {
-      const int t = q0 + tid;
-      sL[tid] = t < Tq ? lse[rows + t] : 0.f;
-      sD[tid] = t < Tq ? delta[rows + t] : 0.f;
+    float s[SPT], dp[SPT];
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) s[j] = dp[j] = 0.f;
+    for (int hh = 0; hh < NH; ++hh) {
+      const int part = (half + 1 + hh) % NH;  // the owned part last
+      // the previous part's or tile's Q, dO, P, dS, lse, Delta are no longer read
+      __syncthreads();
+      load_tile<DV>(sQ, q + bq_ + part * DV, st.s[2], q0, Tq, scale);
+      load_tile<DV>(sDO, dout + bd_ + part * DV, st.s[11], q0, Tq, 1.f);
+      if (hh == 0 && tid < BQ) {
+        const int t = q0 + tid;
+        sL[tid] = t < Tq ? lse[rows + t] : 0.f;
+        sD[tid] = t < Tq ? delta[rows + t] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) {
+        const int c = sub + TPR * j;  // query row in the tile
+#pragma unroll 16
+        for (int d = 0; d < DV; ++d) {
+          s[j] = fmaf(sQ[c * LD + d], sK[r * LDK + part * DV + d], s[j]);
+          dp[j] = fmaf(sDO[c * LD + d], sV[r * LDK + part * DV + d], dp[j]);
+        }
+      }
     }
-    __syncthreads();
 
-#pragma unroll 4
+#pragma unroll
     for (int j = 0; j < SPT; ++j) {
       const int c = sub + TPR * j;  // query row in the tile
-      float s = 0.f, dp = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < DH; ++d) {
-        s = fmaf(sQ[c * LD + d], sK[r * LD + d], s);
-        dp = fmaf(sDO[c * LD + d], sV[r * LD + d], dp);
-      }
       const int qpos = q0 + c;
       float p = 0.f, ds = 0.f;
       if (qpos < Tq && kpos < Tk && !(causal && kpos > qpos)) {
-        p = expf(s - sL[c]);
+        p = expf(s[j] - sL[c]);
         // dS without its factor `scale`: sQ already carries it, so
         // dK += dS^T (q * scale) is the reference's dK += (dS * scale)^T q
-        ds = p * (dp - sD[c]);
+        ds = p * (dp[j] - sD[c]);
       }
       sP[r * LDP + c] = p;
       sDS[r * LDP + c] = ds;
@@ -282,7 +320,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   }
 
   if (kpos < Tk) {
-    const long long row = (((long long)b * H + h) * Tk + kpos) * DH;
+    const long long row = (((long long)b * H + h) * Tk + kpos) * DH + half * DV;
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       dk[row + sub + TPR * i] = dk_acc[i];
@@ -313,10 +351,15 @@ struct DqMmaCfg {
   static constexpr int NW = 4, NT = 32 * NW;
   static constexpr int BQ = 16 * NW;  // q rows per block, 16 a warp
   static constexpr int BK = 64;       // keys per streamed tile
+  static constexpr int DV = rt_tc::Cols<DH>::DV, NH = rt_tc::Cols<DH>::NH;
   // Q and dO A fragments in registers at Dh <= 64 (32 registers at Dh = 64);
-  // at Dh = 128 dQ alone takes 64 registers a thread, so Q and dO are read
+  // from Dh = 128 dQ alone takes 64 registers a thread, so Q and dO are read
   // from shared memory each tile
   static constexpr bool QDO_REGS = DH <= 64;
+  // keys a warp scores at once: the whole tile up to Dh = 128; at 256 its
+  // halves in turn, so that S and dP take 32 registers less (the Dh = 256
+  // body otherwise spills)
+  static constexpr int KS = DH > 128 ? 32 : BK;
   static constexpr int LD = rt_tc::Tile<DH>::LD;
   // sQ (later dQ's staging), sDO [BQ][LD]; sK, sV [2][BK][LD]; all bf16. O
   // passes through the second K buffer before the first key tile
@@ -338,10 +381,10 @@ __global__ void __launch_bounds__(DqMmaCfg<DH>::NT) flash_bwd_dq_mma_kernel(
   using bf16 = __nv_bfloat16;
   using C = DqMmaCfg<DH>;
   using namespace rt_tc;
-  constexpr int BQ = C::BQ, BK = C::BK, NT = C::NT, LD = C::LD;
+  constexpr int BQ = C::BQ, BK = C::BK, NT = C::NT, LD = C::LD, DV = C::DV, KS = C::KS;
   constexpr int KD = DH / 16;  // k16 steps of S = Q K^T and dP = dO V^T
-  constexpr int ND = DH / 8;   // n8 tiles of dQ
-  constexpr int NK = BK / 8;   // n8 tiles of S and dP
+  constexpr int ND = DV / 8;   // n8 tiles of the block's columns of dQ
+  constexpr int NK = KS / 8;   // n8 tiles of a key sub-tile's S and dP
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sDO = sQ + BQ * LD;
@@ -353,7 +396,8 @@ __global__ void __launch_bounds__(DqMmaCfg<DH>::NT) flash_bwd_dq_mma_kernel(
   const int g = lane >> 2, t4 = lane & 3;
   // q tiles in reverse: under causal masking the last tiles are the heaviest
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z / C::NH, col0 = (blockIdx.z % C::NH) * DV;  // owned columns
   const bf16* qb = q + (long long)b * st.s[0] + (long long)h * st.s[1];
   const bf16* kb = k + (long long)b * st.s[3] + (long long)h * st.s[4];
   const bf16* vb = v + (long long)b * st.s[6] + (long long)h * st.s[7];
@@ -401,7 +445,7 @@ __global__ void __launch_bounds__(DqMmaCfg<DH>::NT) flash_bwd_dq_mma_kernel(
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);  // lanes 2r, 2r + 1: row r's
     dl[0] = __shfl_sync(0xffffffffu, sum, 2 * g);
     dl[1] = __shfl_sync(0xffffffffu, sum, 2 * g + 16);
-    if (half == 0 && wq0 + r < Tq) delta[bh * Tq + wq0 + r] = sum;
+    if (half == 0 && col0 == 0 && wq0 + r < Tq) delta[bh * Tq + wq0 + r] = sum;
   }
   // -lse of the thread's rows in log2 units (0 past Tq: those rows are zero
   // and their dQ is never written)
@@ -436,61 +480,67 @@ __global__ void __launch_bounds__(DqMmaCfg<DH>::NT) flash_bwd_dq_mma_kernel(
     const bf16* cK = sK + (j & 1) * BK * LD;
     const bf16* cV = sV + (j & 1) * BK * LD;
     // with BQ == BK every tile up to the frontier holds kept pairs for all
-    // four warps, so no warp skips one
-    float s[NK][4], dp[NK][4];
+    // four warps, so no warp skips one. The tile's keys go through in
+    // sub-tiles of KS keys (one, of all 64, up to Dh = 128)
+#pragma unroll 1
+    for (int ks = 0; ks < BK; ks += KS) {
+      const bf16* cKs = cK + ks * LD;
+      const bf16* cVs = cV + ks * LD;
+      float s[NK][4], dp[NK][4];
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
+      for (int n = 0; n < NK; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-      uint32_t qa[4], da[4];
-      if constexpr (C::QDO_REGS) {
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t qa[4], da[4];
+        if constexpr (C::QDO_REGS) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) qa[i] = qf[kd][i], da[i] = df[kd][i];
-      } else {
-        ldmatrix_x4(qa, wQ + a_off + 16 * kd);
-        ldmatrix_x4(da, wDO + a_off + 16 * kd);
-      }
-      const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * LD + 16 * kd + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int np = 0; np < NK / 2; ++np) {  // keys 16 np .. 16 np + 15
-        uint32_t bk[4], bv[4];
-        ldmatrix_x4(bk, cK + 16 * np * LD + b_off);
-        mma_bf16(s[2 * np], qa, bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
-        ldmatrix_x4(bv, cV + 16 * np * LD + b_off);
-        mma_bf16(dp[2 * np], da, bv[0], bv[1]);
-        mma_bf16(dp[2 * np + 1], da, bv[2], bv[3]);
-      }
-    }
-    // keys past kv_len (zero rows, which would score 0 and give P = exp(-lse))
-    // and keys past the row under causal masking get P = 0 exactly, as
-    // exp(-1e30 - lse) does in the reference; only edge tiles need the test
-    const bool edge = k0 + BK > kv_len || (causal && k0 + BK - 1 > wq0);
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(fmaf(s[n][e], sl2, nl[e >> 1]));  // scale on the f32 score
-        if (edge) {
-          const int key = k0 + 8 * n + 2 * t4 + (e & 1);
-          if (key >= kv_len || (causal && key > row0 + 8 * (e >> 1))) p = 0.f;
+          for (int i = 0; i < 4; ++i) qa[i] = qf[kd][i], da[i] = df[kd][i];
+        } else {
+          ldmatrix_x4(qa, wQ + a_off + 16 * kd);
+          ldmatrix_x4(da, wDO + a_off + 16 * kd);
         }
-        dp[n][e] = p * (dp[n][e] - dl[e >> 1]);  // dS, without its factor scale
+        const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * LD + 16 * kd + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int np = 0; np < NK / 2; ++np) {  // keys 16 np .. 16 np + 15
+          uint32_t bk[4], bv[4];
+          ldmatrix_x4(bk, cKs + 16 * np * LD + b_off);
+          mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+          ldmatrix_x4(bv, cVs + 16 * np * LD + b_off);
+          mma_bf16(dp[2 * np], da, bv[0], bv[1]);
+          mma_bf16(dp[2 * np + 1], da, bv[2], bv[3]);
+        }
       }
-    }
+      // keys past kv_len (zero rows, which would score 0 and give P = exp(-lse))
+      // and keys past the row under causal masking get P = 0 exactly, as
+      // exp(-1e30 - lse) does in the reference; only edge tiles need the test
+      const bool edge = k0 + ks + KS > kv_len || (causal && k0 + ks + KS - 1 > wq0);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {  // dQ += dS K, dS rounded to bf16
-      uint32_t dsa[4];
-      scores_to_a(dsa, dp, kk);
-      const bf16* kt_row = cK + (16 * kk + (lane & 15)) * LD + (lane >> 4) * 8;
+      for (int n = 0; n < NK; ++n) {
 #pragma unroll
-      for (int np = 0; np < ND / 2; ++np) {  // columns 16 np .. 16 np + 15
-        uint32_t kt[4];
-        ldmatrix_x4_trans(kt, kt_row + 16 * np);
-        mma_bf16(acc[2 * np], dsa, kt[0], kt[1]);
-        mma_bf16(acc[2 * np + 1], dsa, kt[2], kt[3]);
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(s[n][e], sl2, nl[e >> 1]));  // scale on the f32 score
+          if (edge) {
+            const int key = k0 + ks + 8 * n + 2 * t4 + (e & 1);
+            if (key >= kv_len || (causal && key > row0 + 8 * (e >> 1))) p = 0.f;
+          }
+          dp[n][e] = p * (dp[n][e] - dl[e >> 1]);  // dS, without its factor scale
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < KS / 16; ++kk) {  // dQ += dS K, dS rounded to bf16
+        uint32_t dsa[4];
+        scores_to_a(dsa, dp, kk);
+        const bf16* kt_row = cKs + (16 * kk + (lane & 15)) * LD + col0 + (lane >> 4) * 8;
+#pragma unroll
+        for (int np = 0; np < ND / 2; ++np) {  // columns 16 np .. 16 np + 15
+          uint32_t kt[4];
+          ldmatrix_x4_trans(kt, kt_row + 16 * np);
+          mma_bf16(acc[2 * np], dsa, kt[0], kt[1]);
+          mma_bf16(acc[2 * np + 1], dsa, kt[2], kt[3]);
+        }
       }
     }
     cp_async_wait<0>();
@@ -499,9 +549,9 @@ __global__ void __launch_bounds__(DqMmaCfg<DH>::NT) flash_bwd_dq_mma_kernel(
 
   // dQ goes out through the warp's own 16 rows of sQ, times scale in f32
   bf16* rows = sQ + 16 * warp * LD;
-  acc_to_rows<DH>(rows, acc, scale, scale, lane);
+  acc_to_rows<DV, LD>(rows, acc, scale, scale, lane);
   __syncwarp();
-  store_rows<DH>(dq + bh * Tq * DH, rows, wq0, Tq, lane);
+  store_rows<DV, LD, DH>(dq + bh * Tq * DH + col0, rows, wq0, Tq, lane);
 }
 
 // K3, bf16, on the tensor cores. Each block owns 64 keys, four warps of 16
@@ -520,8 +570,9 @@ template <int DH>
 struct DkvMmaCfg {
   static constexpr int NW = 4, NT = 128;
   static constexpr int BK = 64;                   // keys per block, 16 a warp
-  static constexpr int BQ = DH == 128 ? 32 : 64;  // q rows per streamed tile
-  // K/V A fragments in registers at Dh <= 64; at Dh = 128 dK and dV alone
+  static constexpr int BQ = DH >= 128 ? 32 : 64;  // q rows per streamed tile
+  static constexpr int DV = rt_tc::Cols<DH>::DV, NH = rt_tc::Cols<DH>::NH;
+  // K/V A fragments in registers at Dh <= 64; from Dh = 128 dK and dV alone
   // take 128 registers a thread, so K and V are read from shared memory
   static constexpr bool KV_REGS = DH <= 64;
   static constexpr int LD = rt_tc::Tile<DH>::LD;
@@ -531,7 +582,8 @@ struct DkvMmaCfg {
       sizeof(__nv_bfloat16) * (2 * BK + 4 * BQ) * LD + sizeof(float) * 4 * BQ;
 };
 static_assert(DkvMmaCfg<64>::BK % DkvMmaCfg<64>::BQ == 0 &&
-              DkvMmaCfg<128>::BK % DkvMmaCfg<128>::BQ == 0,
+              DkvMmaCfg<128>::BK % DkvMmaCfg<128>::BQ == 0 &&
+              DkvMmaCfg<256>::BK % DkvMmaCfg<256>::BQ == 0,
               "the causal start k0 / BQ needs BQ to divide BK");
 
 template <int DH>
@@ -544,9 +596,9 @@ __global__ void __launch_bounds__(DkvMmaCfg<DH>::NT) flash_bwd_dkv_mma_kernel(
   using bf16 = __nv_bfloat16;
   using C = DkvMmaCfg<DH>;
   using namespace rt_tc;
-  constexpr int BQ = C::BQ, BK = C::BK, NT = C::NT, LD = C::LD;
+  constexpr int BQ = C::BQ, BK = C::BK, NT = C::NT, LD = C::LD, DV = C::DV;
   constexpr int KD = DH / 16;  // k16 steps of S^T = K Q^T
-  constexpr int ND = DH / 8;   // n8 tiles of dK, dV
+  constexpr int ND = DV / 8;   // n8 tiles of the block's columns of dK, dV
   constexpr int NQ = BQ / 8;   // n8 tiles of S^T
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
@@ -559,7 +611,8 @@ __global__ void __launch_bounds__(DkvMmaCfg<DH>::NT) flash_bwd_dkv_mma_kernel(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t4 = lane & 3;
   const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z / C::NH, col0 = (blockIdx.z % C::NH) * DV;  // owned columns
   const bf16* qb = q + (long long)b * st.s[0] + (long long)h * st.s[1];
   const bf16* kb = k + (long long)b * st.s[3] + (long long)h * st.s[4];
   const bf16* vb = v + (long long)b * st.s[6] + (long long)h * st.s[7];
@@ -675,7 +728,7 @@ __global__ void __launch_bounds__(DkvMmaCfg<DH>::NT) flash_bwd_dkv_mma_kernel(
         uint32_t pa[4], da[4];
         scores_to_a(pa, s, kk);
         scores_to_a(da, dp, kk);
-        const int t_off = (16 * kk + (lane & 15)) * LD + (lane >> 4) * 8;
+        const int t_off = (16 * kk + (lane & 15)) * LD + col0 + (lane >> 4) * 8;
 #pragma unroll
         for (int np = 0; np < ND / 2; ++np) {  // columns 16 np .. 16 np + 15
           uint32_t bo[4], bq[4];
@@ -695,11 +748,11 @@ __global__ void __launch_bounds__(DkvMmaCfg<DH>::NT) flash_bwd_dkv_mma_kernel(
   // dK and dV go out through the warp's own 16 rows of sK and sV
   bf16* rk = sK + 16 * warp * LD;
   bf16* rv = sV + 16 * warp * LD;
-  acc_to_rows<DH>(rk, dk_acc, scale, scale, lane);
-  acc_to_rows<DH>(rv, dv_acc, 1.f, 1.f, lane);
+  acc_to_rows<DV, LD>(rk, dk_acc, scale, scale, lane);
+  acc_to_rows<DV, LD>(rv, dv_acc, 1.f, 1.f, lane);
   __syncwarp();
-  store_rows<DH>(dk + bh * Tk * DH, rk, wk0, Tk, lane);
-  store_rows<DH>(dv + bh * Tk * DH, rv, wk0, Tk, lane);
+  store_rows<DV, LD, DH>(dk + bh * Tk * DH + col0, rk, wk0, Tk, lane);
+  store_rows<DV, LD, DH>(dv + bh * Tk * DH + col0, rv, wk0, Tk, lane);
 }
 
 template <int DH>
@@ -711,7 +764,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Tq + BQ - 1) / BQ, H, B);
+  dim3 grid((Tq + BQ - 1) / BQ, H, B * rt_tc::Cols<DH>::NH);
   flash_bwd_dq_kernel<DH><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(o), static_cast<const float*>(dout), lse,
@@ -730,7 +783,7 @@ cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const voi
       flash_bwd_dq_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)C::smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Tq + C::BQ - 1) / C::BQ, H, B);
+  dim3 grid((Tq + C::BQ - 1) / C::BQ, H, B * C::NH);
   flash_bwd_dq_mma_kernel<DH><<<grid, C::NT, C::smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
@@ -747,7 +800,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Tk + BK - 1) / BK, H, B);
+  dim3 grid((Tk + BK - 1) / BK, H, B * rt_tc::Cols<DH>::NH);
   flash_bwd_dkv_kernel<DH><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
@@ -766,7 +819,7 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const vo
       flash_bwd_dkv_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)C::smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Tk + C::BK - 1) / C::BK, H, B);
+  dim3 grid((Tk + C::BK - 1) / C::BK, H, B * C::NH);
   flash_bwd_dkv_mma_kernel<DH><<<grid, C::NT, C::smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
@@ -805,10 +858,12 @@ extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v, cons
     if (Dh == 32) return (int)launch_dq<32> RT_DQ_ARGS;
     if (Dh == 64) return (int)launch_dq<64> RT_DQ_ARGS;
     if (Dh == 128) return (int)launch_dq<128> RT_DQ_ARGS;
+    if (Dh == 256) return (int)launch_dq<256> RT_DQ_ARGS;
   } else if (dtype == 1) {  // bf16: the tensor-core body
     if (Dh == 32) return (int)launch_dq_mma<32> RT_DQ_ARGS;
     if (Dh == 64) return (int)launch_dq_mma<64> RT_DQ_ARGS;
     if (Dh == 128) return (int)launch_dq_mma<128> RT_DQ_ARGS;
+    if (Dh == 256) return (int)launch_dq_mma<256> RT_DQ_ARGS;
   }
 #undef RT_DQ_ARGS
   return (int)cudaErrorInvalidValue;
@@ -833,10 +888,12 @@ extern "C" int rt_flash_bwd_dkv(const void* q, const void* k, const void* v,
     if (Dh == 32) return (int)launch_dkv<32> RT_DKV_ARGS;
     if (Dh == 64) return (int)launch_dkv<64> RT_DKV_ARGS;
     if (Dh == 128) return (int)launch_dkv<128> RT_DKV_ARGS;
+    if (Dh == 256) return (int)launch_dkv<256> RT_DKV_ARGS;
   } else if (dtype == 1) {  // bf16: the tensor-core body
     if (Dh == 32) return (int)launch_dkv_mma<32> RT_DKV_ARGS;
     if (Dh == 64) return (int)launch_dkv_mma<64> RT_DKV_ARGS;
     if (Dh == 128) return (int)launch_dkv_mma<128> RT_DKV_ARGS;
+    if (Dh == 256) return (int)launch_dkv_mma<256> RT_DKV_ARGS;
   }
 #undef RT_DKV_ARGS
   return (int)cudaErrorInvalidValue;

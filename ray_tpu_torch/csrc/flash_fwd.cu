@@ -42,6 +42,17 @@
 //
 // Both stream K/V through shared memory, where the TPU kernel keeps a whole
 // row of K and V resident in VMEM: a Hopper block has at most 227 KB.
+//
+// Head dims past 128 (256, the widest the wrapper pads to): the Dh = 128
+// tiles cannot simply be stretched. The bf16 body already holds 211-247
+// registers a thread at 128, and the f32 body's accumulators would double.
+// So the grid doubles instead (`rt_tc::Cols`): each block owns 128 of the
+// 256 output columns of O and keeps the accumulators of Dh = 128, while its
+// scores S = q k^T still run over the whole head from full-width q and K
+// tiles (the bf16 body then reads q's fragments from shared memory each
+// tile instead of keeping them in registers); only the owned half of V is
+// loaded. S is computed twice, once in each block of a pair; both compute
+// lse, the first of the pair writes it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,8 +73,9 @@ constexpr int SPT = BK / TPR;     // scores per thread per tile (16)
 
 template <int DH>
 constexpr size_t smem_bytes() {
-  // sQ [BQ][DH+1], sK [BK][DH+1], sV [BK][DH], sP [BQ][BK+1], all f32
-  return sizeof(float) * (BQ * (DH + 1) + BK * (DH + 1) + BK * DH + BQ * (BK + 1));
+  // sQ [BQ][DH+1], sK [BK][DH+1], sV [BK][DV], sP [BQ][BK+1], all f32
+  constexpr int DV = rt_tc::Cols<DH>::DV;
+  return sizeof(float) * (BQ * (DH + 1) + BK * (DH + 1) + BK * DV + BQ * (BK + 1));
 }
 
 template <int DH>
@@ -72,24 +84,25 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     float* __restrict__ o, float* __restrict__ lse, int H, int Tq, int kv_len,
     int sqb, int sqh, int sqt, int skb, int skh, int skt,
     int svb, int svh, int svt, int causal, float scale) {
+  constexpr int DV = rt_tc::Cols<DH>::DV, NH = rt_tc::Cols<DH>::NH;
   constexpr int LD = DH + 1;
   constexpr int LDP = BK + 1;
-  constexpr int CPT = DH / TPR;   // accumulator columns per thread
+  constexpr int CPT = DV / TPR;   // accumulator columns per thread
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sP = sV + BK * DH;
+  float* sV = sK + BK * LD;       // the block's DV columns of V
+  float* sP = sV + BK * DV;
 
   const int tid = threadIdx.x;
   const int r = tid / TPR;        // the query row this thread works on
   const int sub = tid % TPR;      // its lane within the row's 4 threads
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / NH, col0 = (blockIdx.z % NH) * DV;  // owned columns
   const float* qb = q + (long long)b * sqb + (long long)h * sqh;
   const float* kb = k + (long long)b * skb + (long long)h * skh;
-  const float* vb = v + (long long)b * svb + (long long)h * svh;
+  const float* vb = v + (long long)b * svb + (long long)h * svh + col0;
 
   // q is scaled once on load, as the reference scales q before the dot
   for (int idx = tid; idx < BQ * DH; idx += NT) {
@@ -111,9 +124,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     __syncthreads();  // the previous tile's K, V, P are no longer read
     for (int idx = tid; idx < BK * DH; idx += NT) {
       const int rr = idx / DH, d = idx % DH, t = k0 + rr;
-      const bool ok = t < kv_len;
-      sK[rr * LD + d] = ok ? kb[(long long)t * skt + d] : 0.f;
-      sV[rr * DH + d] = ok ? vb[(long long)t * svt + d] : 0.f;
+      sK[rr * LD + d] = t < kv_len ? kb[(long long)t * skt + d] : 0.f;
+    }
+    for (int idx = tid; idx < BK * DV; idx += NT) {
+      const int rr = idx / DV, d = idx % DV, t = k0 + rr;
+      sV[rr * DV + d] = t < kv_len ? vb[(long long)t * svt + d] : 0.f;
     }
     __syncthreads();
 
@@ -153,17 +168,17 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     for (int c = 0; c < BK; ++c) {
       const float p = sP[r * LDP + c];
 #pragma unroll
-      for (int i = 0; i < CPT; ++i) acc[i] = fmaf(p, sV[c * DH + sub + TPR * i], acc[i]);
+      for (int i = 0; i < CPT; ++i) acc[i] = fmaf(p, sV[c * DV + sub + TPR * i], acc[i]);
     }
   }
 
   if (qpos < Tq) {
     l = fmaxf(l, 1e-30f);
     const long long row = ((long long)b * H + h) * Tq + qpos;
-    float* ob = o + row * DH;
+    float* ob = o + row * DH + col0;
 #pragma unroll
     for (int i = 0; i < CPT; ++i) ob[sub + TPR * i] = acc[i] / l;
-    if (sub == 0) lse[row] = m + logf(l);
+    if (sub == 0 && col0 == 0) lse[row] = m + logf(l);
   }
 }
 
@@ -173,13 +188,19 @@ constexpr float LN2 = 0.6931471805599453f;
 
 template <int DH>
 struct MmaCfg {
-  static constexpr int NW = DH == 128 ? 4 : 8;  // warps, 16 query rows each
+  static constexpr int NW = DH >= 128 ? 4 : 8;  // warps, 16 query rows each
   static constexpr int BQ = 16 * NW;            // query rows per block
   static constexpr int BK = 64;                 // keys per streamed tile
   static constexpr int NT = 32 * NW;
+  static constexpr int DV = rt_tc::Cols<DH>::DV, NH = rt_tc::Cols<DH>::NH;
+  // q's A fragments in registers up to Dh = 128 (32 registers there); past
+  // it they are read from shared memory each tile
+  static constexpr bool QREGS = DH <= 128;
   static constexpr int LD = rt_tc::Tile<DH>::LD;
-  // sQ [BQ][LD] (later O's staging), sK and sV [2][BK][LD], all bf16
-  static constexpr size_t smem = sizeof(bf16) * (BQ + 4 * BK) * LD;
+  static constexpr int LDV = rt_tc::Tile<DV>::LD;
+  // sQ [BQ][LD] (later O's staging), sK [2][BK][LD], sV [2][BK][LDV] (the
+  // block's DV columns), all bf16
+  static constexpr size_t smem = sizeof(bf16) * ((BQ + 2 * BK) * LD + 2 * BK * LDV);
 };
 
 template <int DH>
@@ -190,9 +211,9 @@ __global__ void __launch_bounds__(MmaCfg<DH>::NT) flash_fwd_mma_kernel(
     int svb, int svh, int svt, int causal, float scale) {
   using C = MmaCfg<DH>;
   using namespace rt_tc;
-  constexpr int BQ = C::BQ, BK = C::BK, NT = C::NT, LD = C::LD;
+  constexpr int BQ = C::BQ, BK = C::BK, NT = C::NT, LD = C::LD, LDV = C::LDV, DV = C::DV;
   constexpr int KD = DH / 16;  // k16 steps of S = q k^T
-  constexpr int ND = DH / 8;   // n8 tiles of O
+  constexpr int ND = DV / 8;   // n8 tiles of the block's columns of O
   constexpr int NK = BK / 8;   // n8 tiles of S
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
@@ -203,10 +224,11 @@ __global__ void __launch_bounds__(MmaCfg<DH>::NT) flash_fwd_mma_kernel(
   const int g = lane >> 2, t4 = lane & 3;
   // q tiles in reverse: under causal masking the last tiles are the heaviest
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z / C::NH, col0 = (blockIdx.z % C::NH) * DV;  // owned columns
   const bf16* qb = q + (long long)b * sqb + (long long)h * sqh;
   const bf16* kb = k + (long long)b * skb + (long long)h * skh;
-  const bf16* vb = v + (long long)b * svb + (long long)h * svh;
+  const bf16* vb = v + (long long)b * svb + (long long)h * svh + col0;
   const int wq0 = q0 + 16 * warp;  // the warp's first query row
   const int row0 = wq0 + g;        // this thread's rows: row0, row0 + 8
 
@@ -215,15 +237,18 @@ __global__ void __launch_bounds__(MmaCfg<DH>::NT) flash_fwd_mma_kernel(
 
   load_tile_async<BQ, DH, NT>(sQ, qb, sqt, q0, Tq);
   load_tile_async<BK, DH, NT>(sK, kb, skt, 0, kv_len);
-  load_tile_async<BK, DH, NT>(sV, vb, svt, 0, kv_len);
+  load_tile_async<BK, DV, NT>(sV, vb, svt, 0, kv_len);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
 
-  uint32_t qf[KD][4];  // the warp's 16 q rows as A fragments, loaded once
+  // the warp's 16 q rows as A fragments, loaded once where registers allow
+  const bf16* wQ = sQ + (16 * warp + (lane & 15)) * LD + (lane >> 4) * 8;
+  uint32_t qf[C::QREGS ? KD : 1][4];
+  if constexpr (C::QREGS) {
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd)
-    ldmatrix_x4(qf[kd], sQ + (16 * warp + (lane & 15)) * LD + kd * 16 + (lane >> 4) * 8);
+    for (int kd = 0; kd < KD; ++kd) ldmatrix_x4(qf[kd], wQ + kd * 16);
+  }
 
   float acc[ND][4];
 #pragma unroll
@@ -237,11 +262,11 @@ __global__ void __launch_bounds__(MmaCfg<DH>::NT) flash_fwd_mma_kernel(
     const int k0 = j * BK;
     if (j + 1 < num_kb) {  // the next tile streams in while this one computes
       load_tile_async<BK, DH, NT>(sK + ((j + 1) & 1) * BK * LD, kb, skt, k0 + BK, kv_len);
-      load_tile_async<BK, DH, NT>(sV + ((j + 1) & 1) * BK * LD, vb, svt, k0 + BK, kv_len);
+      load_tile_async<BK, DV, NT>(sV + ((j + 1) & 1) * BK * LDV, vb, svt, k0 + BK, kv_len);
       cp_async_commit();
     }
     const bf16* cK = sK + (j & 1) * BK * LD;
-    const bf16* cV = sV + (j & 1) * BK * LD;
+    const bf16* cV = sV + (j & 1) * BK * LDV;
     // a tile wholly above the diagonal for all 16 rows leaves them as they
     // are (P = 0, correction 1), so the warp skips it
     if (!(causal && k0 > wq0 + 15)) {
@@ -250,13 +275,20 @@ __global__ void __launch_bounds__(MmaCfg<DH>::NT) flash_fwd_mma_kernel(
       for (int n = 0; n < NK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
       for (int kd = 0; kd < KD; ++kd) {
+        uint32_t qa[4];
+        if constexpr (C::QREGS) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[i] = qf[kd][i];
+        } else {
+          ldmatrix_x4(qa, wQ + kd * 16);
+        }
 #pragma unroll
         for (int np = 0; np < NK / 2; ++np) {  // keys 16 np .. 16 np + 15
           uint32_t kf[4];
           ldmatrix_x4(kf, cK + (16 * np + (lane & 7) + ((lane >> 4) << 3)) * LD + kd * 16 +
                               ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], qf[kd], kf[0], kf[1]);
-          mma_bf16(s[2 * np + 1], qf[kd], kf[2], kf[3]);
+          mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+          mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
         }
       }
       const bool edge = k0 + BK > kv_len || (causal && k0 + BK - 1 > wq0);
@@ -310,7 +342,7 @@ __global__ void __launch_bounds__(MmaCfg<DH>::NT) flash_fwd_mma_kernel(
 #pragma unroll
         for (int dp = 0; dp < ND / 2; ++dp) {  // columns 16 dp .. 16 dp + 15
           uint32_t vf[4];
-          ldmatrix_x4_trans(vf, cV + (16 * kk + (lane & 15)) * LD + 16 * dp + (lane >> 4) * 8);
+          ldmatrix_x4_trans(vf, cV + (16 * kk + (lane & 15)) * LDV + 16 * dp + (lane >> 4) * 8);
           mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
           mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
         }
@@ -324,11 +356,11 @@ __global__ void __launch_bounds__(MmaCfg<DH>::NT) flash_fwd_mma_kernel(
   l[1] = fmaxf(l[1], 1e-30f);
   // O goes out through the warp's own 16 rows of sQ, 16 bytes a lane
   bf16* rows = sQ + 16 * warp * LD;
-  acc_to_rows<DH>(rows, acc, 1.f / l[0], 1.f / l[1], lane);
+  acc_to_rows<DV, LD>(rows, acc, 1.f / l[0], 1.f / l[1], lane);
   __syncwarp();
   const long long bh = (long long)b * H + h;
-  store_rows<DH>(o + bh * Tq * DH, rows, wq0, Tq, lane);
-  if (t4 == 0) {
+  store_rows<DV, LD, DH>(o + bh * Tq * DH + col0, rows, wq0, Tq, lane);
+  if (t4 == 0 && col0 == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
       if (row0 + 8 * i < Tq) lse[bh * Tq + row0 + 8 * i] = (m[i] + log2f(l[i])) * LN2;
@@ -344,7 +376,7 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o, flo
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Tq + BQ - 1) / BQ, H, B);
+  dim3 grid((Tq + BQ - 1) / BQ, H, B * rt_tc::Cols<DH>::NH);
   flash_fwd_kernel<DH><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H, Tq, kv_len, st[0], st[1],
@@ -360,7 +392,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, flo
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Tq + C::BQ - 1) / C::BQ, H, B);
+  dim3 grid((Tq + C::BQ - 1) / C::BQ, H, B * C::NH);
   flash_fwd_mma_kernel<DH><<<grid, C::NT, C::smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), lse, H, Tq, kv_len, st[0], st[1], st[2], st[3], st[4], st[5],
@@ -391,10 +423,12 @@ extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o
     if (Dh == 32) return (int)RT_FWD(fma, 32);
     if (Dh == 64) return (int)RT_FWD(fma, 64);
     if (Dh == 128) return (int)RT_FWD(fma, 128);
+    if (Dh == 256) return (int)RT_FWD(fma, 256);
   } else if (dtype == 1) {
     if (Dh == 32) return (int)RT_FWD(mma, 32);
     if (Dh == 64) return (int)RT_FWD(mma, 64);
     if (Dh == 128) return (int)RT_FWD(mma, 128);
+    if (Dh == 256) return (int)RT_FWD(mma, 256);
   }
 #undef RT_FWD
   return (int)cudaErrorInvalidValue;

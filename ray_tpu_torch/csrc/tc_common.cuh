@@ -97,13 +97,25 @@ __device__ __forceinline__ void scores_to_a(uint32_t (&a)[4], const float (&c)[N
 
 // Shared-memory tiles are rows of DH bf16 padded by 16 bytes: the 8 rows an
 // ldmatrix matrix reads (same column, consecutive rows) then start in 8
-// different 16-byte bank groups for DH = 32, 64 and 128 (row strides of 5, 9
-// and 17 chunks), so neither ldmatrix nor its .trans form has bank
+// different 16-byte bank groups for DH = 32, 64, 128 and 256 (row strides of
+// 5, 9, 17 and 33 chunks), so neither ldmatrix nor its .trans form has bank
 // conflicts.
 template <int DH>
 struct Tile {
   static constexpr int LD = DH + 8;  // row stride, in bf16 elements
   static constexpr int CPR = DH / 8; // 16-byte chunks in a row
+};
+
+// The output columns a block owns. Up to Dh = 128 a block writes all of
+// O, dQ, dK or dV for its rows. Past 128 the grid doubles: each block owns
+// DV = 128 of the Dh columns (NH = Dh / 128 blocks to a row tile) and still
+// takes its scores over the whole head, so its accumulators, and its
+// registers, stay those of Dh = 128. The block of column part `half` is
+// z-index b * NH + half.
+template <int DH>
+struct Cols {
+  static constexpr int DV = DH > 128 ? 128 : DH;
+  static constexpr int NH = DH / DV;
 };
 
 // Start the copy of rows [t0, t0 + ROWS) of a [Tn, DH] bf16 slice (row
@@ -124,9 +136,10 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_b
   }
 }
 
-// Store the 16 rows of a warp's padded bf16 tile `rows` to a contiguous
-// [T, DH] slice from row t0, rows at or past Tn skipped, 16 bytes a lane.
-template <int DH>
+// Store DH columns of the 16 rows of a warp's bf16 tile `rows` (row stride
+// LD) to a contiguous slice of row stride DST from row t0, rows at or past
+// Tn skipped, 16 bytes a lane.
+template <int DH, int LD = Tile<DH>::LD, int DST = DH>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const __nv_bfloat16* rows,
                                            int t0, int Tn, int lane) {
   constexpr int CPR = Tile<DH>::CPR;
@@ -135,23 +148,23 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const __nv_bfloat
     const int idx = lane + 32 * i;
     const int r = idx / CPR, c = idx % CPR;
     if (t0 + r < Tn)
-      *reinterpret_cast<uint4*>(dst + (long long)(t0 + r) * DH + c * 8) =
-          *reinterpret_cast<const uint4*>(rows + r * Tile<DH>::LD + c * 8);
+      *reinterpret_cast<uint4*>(dst + (long long)(t0 + r) * DST + c * 8) =
+          *reinterpret_cast<const uint4*>(rows + r * LD + c * 8);
   }
 }
 
 // Write a warp's 16 x DH f32 accumulators (C fragments, one per n8 tile),
 // times the per-row factors mul0 (row g) and mul1 (row g + 8), as bf16 into
-// the warp's 16 rows of a padded tile.
-template <int DH>
+// the warp's 16 rows of a tile of row stride LD.
+template <int DH, int LD = Tile<DH>::LD>
 __device__ __forceinline__ void acc_to_rows(__nv_bfloat16* rows, const float (&acc)[DH / 8][4],
                                             float mul0, float mul1, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) {
-    __nv_bfloat16* p = rows + g * Tile<DH>::LD + n * 8 + 2 * t;
+    __nv_bfloat16* p = rows + g * LD + n * 8 + 2 * t;
     *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(acc[n][0] * mul0, acc[n][1] * mul0);
-    *reinterpret_cast<uint32_t*>(p + 8 * Tile<DH>::LD) =
+    *reinterpret_cast<uint32_t*>(p + 8 * LD) =
         pack_bf16x2(acc[n][2] * mul1, acc[n][3] * mul1);
   }
 }

@@ -14,13 +14,14 @@ tensor cores (mma.sync, f32 accumulators); in f32, on f32 FMAs.
 - A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
   version (`flash_attention_reference`, `flash_attention_bwd_reference`);
   any other device raises.
-- The kernels are built for head dims 32, 64 and 128 (`HEAD_DIMS`). A head
-  dim up to 128 that is not one of them is zero-padded on the last axis to
-  the next of them, with the scale of the original head dim, and O, dQ,
-  dK, dV are sliced back: zero columns add nothing to q k^T, and the extra
-  output columns are dropped, so this is exact. Both routes pad, so the
-  CPU path runs the same padding. Past 128 the kernels' register budget
-  (211-247 registers a thread at Dh=128) is the limit, and it raises.
+- The kernels are built for head dims 32, 64, 128 and 256 (`HEAD_DIMS`). A
+  head dim up to 256 that is not one of them is zero-padded on the last
+  axis to the next of them, with the scale of the original head dim, and
+  O, dQ, dK, dV are sliced back: zero columns add nothing to q k^T, and the
+  extra output columns are dropped, so this is exact. Both routes pad, so
+  the CPU path runs the same padding. At 256 each kernel's grid doubles and
+  a block owns 128 of the output columns (the register budget of Dh=128,
+  211-247 a thread, is the limit a block keeps to). Past 256 it raises.
 - K1 and K2 take `kv_len`, a bound on valid keys (keys at or past it are
   masked): a K/V chunk zero-padded at its end, as the ring pads its ragged
   chunks, is exact. K3 needs no bound (padded query rows carry dO = 0).
@@ -46,7 +47,7 @@ import torch
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -113,8 +114,8 @@ def _head_width(dh: int) -> int:
     for width in HEAD_DIMS:
         if dh <= width:
             return width
-    raise ValueError(f"head dim {dh} > {HEAD_DIMS[-1]}: the flash kernels' "
-                     f"register budget ends at {HEAD_DIMS[-1]}")
+    raise ValueError(f"head dim {dh} > {HEAD_DIMS[-1]}: the flash kernels "
+                     f"are built for head dims up to {HEAD_DIMS[-1]}")
 
 
 def _pad_heads(*ts) -> tuple:
@@ -256,7 +257,7 @@ def _kernel_inputs(*ts):
     tensor needs a unit stride on the last dim, a 16-byte-aligned base
     address and batch, head and time strides in bytes that are multiples of
     16. A tensor that breaks it is copied into a fresh contiguous one (the
-    allocator aligns it, and with Dh in {32, 64, 128} its strides follow).
+    allocator aligns it, and with Dh in HEAD_DIMS its strides follow).
     The model's q/k/v views of the QKV product (time stride 3 * H * Dh) and
     autograd's transposed dO pass as they are."""
     dtype, device = ts[0].dtype, ts[0].device

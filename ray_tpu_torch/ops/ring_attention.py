@@ -23,12 +23,12 @@ Each rank's ring schedule is a generator (`ring_forward`,
 receives the previous rank's: `drive` runs one with an exchange (the
 distributed path's `Comm.exchange`), `drive_virtual` runs sp of them in one
 process with an in-process rotation (one card standing in for a ring).
-The ring takes any head dim up to 128 (the flash wrappers pad it to the
+The ring takes any head dim up to 256 (the flash wrappers pad it to the
 kernels' widths) and any chunk length: a chunk longer than a block that
 does not divide into blocks of 128 is zero-padded at its end to the next
 multiple, K1 and K2 mask the padded keys on the non-causal pairs with
 their `kv_len` bound (on the causal diagonal, causality already hides them
-from the real queries), and the padded rows are dropped. Past Dh = 128 it
+from the real queries), and the padded rows are dropped. Past Dh = 256 it
 raises `ValueError`. The accounted wire bytes are the JAX package's, of
 the unpadded chunks.
 
@@ -89,11 +89,11 @@ def _chunk_update(q, kc, vc, m, l, acc, scale, q_off, k_off, causal):
 
 def check_ring_shape(t_local: int, head_dim: int) -> None:
     """The kernels' shape contract on a chunk of `t_local` positions: any
-    length (`_padded_len`), head dims up to 128."""
+    length (`_padded_len`), head dims up to 256."""
     if head_dim > HEAD_DIMS[-1]:
         raise ValueError(f"ring attention runs the flash kernels: head dim "
-                         f"{head_dim} > {HEAD_DIMS[-1]}, where their "
-                         f"register budget ends")
+                         f"{head_dim} > {HEAD_DIMS[-1]}, the widest they "
+                         f"are built for")
 
 
 def _padded_len(n: int) -> int:

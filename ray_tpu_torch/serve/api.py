@@ -45,8 +45,6 @@ class Deployment:
     # zero control-plane RPCs per warm request) with the dynamic handle
     # kept as the cold-start/failover path. chain_config tunes the chain
     # (lanes, batch_max, coalesce_ms, max_inflight, channel_capacity).
-    # The chain is ROADMAP item 18b: until it lands, the port's proxy
-    # answers such a deployment with a 500 that names it (handles work).
     compiled: bool = False
     chain_config: Optional[Dict[str, Any]] = None
 
@@ -153,7 +151,7 @@ def run(target: Deployment, *, name: Optional[str] = None,
 
     `compiled=True` marks the deployment for the proxies' compiled
     ingress path (standing ring channels instead of per-request actor
-    calls; ROADMAP item 18b, not ported yet) — equivalent to
+    calls; see serve/compiled_chain.py) — equivalent to
     `@serve.deployment(compiled=True)`, overriding the decorator.
 
     `_local_testing_mode=True` runs the deployment IN-PROCESS with no
@@ -218,6 +216,22 @@ def delete(deployment_name: str) -> None:
 def shutdown() -> None:
     from ray_tpu_torch.core.api import get_actor
 
+    try:
+        grpc_proxy = get_actor("serve-grpc-proxy")
+    except Exception:
+        grpc_proxy = None
+    if grpc_proxy is not None:
+        try:
+            ray_tpu_torch.get(grpc_proxy.stop.remote(), timeout=10)
+        except Exception:
+            pass
+        finally:
+            # a detached proxy surviving here would hand later start_grpc()
+            # callers a server wired to a dead controller
+            try:
+                ray_tpu_torch.kill(grpc_proxy)
+            except Exception:
+                pass
     try:
         controller = get_actor(CONTROLLER_NAME)
     except (ValueError, RuntimeError):

@@ -26,7 +26,7 @@ applications:
 Overrides map straight onto `Deployment.options(**opts)`, so every
 dataclass field works — including `compiled`/`chain_config`, which flip
 the deployment onto the proxies' compiled ingress (ring channels, lanes
-spread across replicas; ROADMAP item 18b in the port).
+spread across replicas; serve/compiled_chain.py).
 """
 
 from __future__ import annotations

@@ -17,15 +17,17 @@ exceeds the route's SLO or every replica's queue is at its bound), and
 failed submissions to a dying replica fail over to a healthy one instead
 of surfacing a 500.
 
-The compiled ingress (a deployment marked `compiled=True`, served over a
-standing CompiledServeChain) is ROADMAP item 18b: until it is ported,
-such a deployment's requests answer 500 with the NotImplementedError that
-names it.
+The compiled ingress: a deployment marked `compiled=True` is served over
+one standing CompiledServeChain per proxy (serve/compiled_chain.py), its
+requests written into ring channels with no control-plane RPC per warm
+request; until the chain is live, and whenever it is fenced, requests take
+the dynamic router below.
 """
 
 from __future__ import annotations
 
 import asyncio
+import threading
 import time
 from typing import Any, Dict, Optional
 
@@ -33,7 +35,35 @@ import ray_tpu_torch
 from ray_tpu_torch.serve import live_signals
 
 ROUTE_REFRESH_S = 1.0
+# routing-table refresh cadence while the deployment's ingress chain is
+# live: replica death is fenced by the chain's actor-death pubsub, so the
+# poll only catches autoscale-up drift, stretched so that a window of warm
+# compiled requests makes zero control-plane RPCs from the proxy process
+# (counted in tests/test_torch_serve_compiled.py)
+COMPILED_ROUTE_REFRESH_S = 30.0
 SUBMIT_ATTEMPTS = 3     # original try + failovers on replica death
+
+
+async def _chain_result(resp, timeout: float):
+    """Await a ChainResponse on the event loop without parking an executor
+    thread per in-flight request: the chain's drainer thread completes the
+    response, and the done-callback hands the value back to the loop."""
+    loop = asyncio.get_running_loop()
+    fut = loop.create_future()
+
+    def _done(r):
+        def _set():
+            if fut.cancelled():
+                return
+            if r._exc is not None:
+                fut.set_exception(r._exc)
+            else:
+                fut.set_result(r._value)
+        loop.call_soon_threadsafe(_set)
+
+    resp.add_done_callback(_done)
+    return await asyncio.wait_for(fut, timeout)
+
 
 # ------------------------------------------------------- serve telemetry
 _serve_metrics = None
@@ -176,7 +206,12 @@ class _AsyncRouter:
         self._slo: Optional[dict] = None
         self._ts = 0.0
         self._inflight: Dict[str, int] = {}
-        self._compiled = False       # set from the routing table
+        # compiled ingress state (set from the routing table)
+        self._compiled = False
+        self._chain_config: Optional[dict] = None
+        self._chain = None
+        self._chain_starting = False
+        self._target_replicas = 0
         # requests queued behind a scaled-to-zero deployment; pushed to
         # the controller as the wake-up demand signal
         self._cold_waiters = 0
@@ -186,7 +221,20 @@ class _AsyncRouter:
 
     async def _refresh(self, force: bool = False):
         now = time.monotonic()
-        if not force and now - self._ts < ROUTE_REFRESH_S:
+        interval = ROUTE_REFRESH_S
+        chain = self._chain
+        if chain is not None and chain.is_compiled():
+            # live chain: replica death fences via the actor-death pubsub,
+            # so only autoscale drift needs the poll; stretch it, unless
+            # the chain is degraded (its lanes cover fewer replicas than
+            # min(lanes, target), e.g. it recompiled over the survivor
+            # while the controller was replacing a dead replica): then
+            # poll fast until maybe_rebalance re-spreads the lanes
+            lanes = chain.lane_targets()
+            spread = {t for lane in lanes for _d, t in lane}
+            if len(spread) >= min(len(lanes), self._target_replicas or 1):
+                interval = COMPILED_ROUTE_REFRESH_S
+        if not force and now - self._ts < interval:
             return
         ref = self._controller.get_routing_table.remote(self._deployment)
         table = await ref
@@ -195,6 +243,8 @@ class _AsyncRouter:
             self._model_map = table.get("models", {})
             self._slo = table.get("slo")
             self._compiled = bool(table.get("compiled"))
+            self._chain_config = table.get("chain")
+            self._target_replicas = int(table.get("target_replicas") or 0)
             self._inflight = {t: self._inflight.get(t, 0)
                               for t in self._table}
             # a dead replica's stale prefix mapping would eat a failed
@@ -205,17 +255,63 @@ class _AsyncRouter:
                 del self._prefix_map[key]
             if self._compiled:
                 self._maybe_start_chain()
+                chain = self._chain
+                if chain is not None and chain.is_compiled():
+                    # the replica set drifted (autoscale-up has no death to
+                    # fence on): the chain decides, rate-limited, in an
+                    # executor (a rebalance fence drains in-flight entries)
+                    tags = set(self._table)
+                    asyncio.get_running_loop().run_in_executor(
+                        None, lambda: chain.maybe_rebalance(
+                            {self._deployment: tags}))
         self._ts = now
 
     def _maybe_start_chain(self) -> None:
-        """The JAX package stands up the deployment's compiled ingress
-        chain here (CompiledServeChain over ring channels). That chain is
-        ROADMAP item 18b, not ported yet: a deployment marked compiled is
-        refused rather than served by a path it did not ask for."""
-        raise NotImplementedError(
-            f"deployment {self._deployment!r} is marked compiled=True: the "
-            f"compiled serve chain is ROADMAP item 18b, not ported to "
-            f"ray_tpu_torch yet")
+        """Stand up the deployment's ingress chain once, off the event loop
+        (compile and warm-up are blocking control-plane work). Until it is
+        live, and again whenever it is fenced, requests take the dynamic
+        path: the cold-start and failover contract."""
+        if self._chain is not None or self._chain_starting:
+            return
+        self._chain_starting = True
+        cfg = dict(self._chain_config or {})
+        # one lane per replica, at least 2, so every replica holds a ring
+        # and a single replica still overlaps entries
+        cfg.setdefault("lanes", max(2, len(self._table)))
+        dep, controller = self._deployment, self._controller
+
+        def _start():
+            try:
+                from ray_tpu_torch.serve.compiled_chain import \
+                    CompiledServeChain
+
+                chain = CompiledServeChain(
+                    [dep], controller=controller, plane="serve_proxy",
+                    **cfg)
+                chain.start()
+                self._chain = chain
+            except Exception:
+                # retried on a later refresh (replicas still starting)
+                self._chain_starting = False
+
+        threading.Thread(target=_start, daemon=True,
+                         name=f"proxy-chain-{dep}").start()
+
+    def chain_status(self) -> dict:
+        chain = self._chain
+        if chain is None:
+            return {"compiled": self._compiled, "chain": False}
+        return {"compiled": self._compiled, "chain": True,
+                "live": chain.is_compiled(),
+                "generation": chain.generation,
+                "lane_targets": chain.lane_targets(),
+                "stats": dict(chain.stats)}
+
+    def shutdown_chain(self) -> None:
+        chain, self._chain = self._chain, None
+        self._chain_starting = False
+        if chain is not None:
+            chain.shutdown()
 
     def _live_cache(self):
         # lazy: unit tests build routers via __new__ with hand-set state
@@ -281,8 +377,22 @@ class _AsyncRouter:
     async def submit(self, method: str, args: tuple, kwargs: dict,
                      model_id: Optional[str] = None,
                      with_tag: bool = False,
-                     prefix_key: Optional[str] = None):
+                     prefix_key: Optional[str] = None,
+                     allow_compiled: bool = False,
+                     timeout_s: float = 60.0):
         await self._refresh()
+        # compiled fast path: one ring write and one ring read, no replica
+        # pick, no actor-call RPC. Only plain __call__ shapes ride it:
+        # multiplexed models and replica-affine calls (SSE) need the
+        # dynamic router's placement. A cold or fenced chain falls through
+        # to the dynamic path below (the chain also fails items over
+        # itself once they were submitted to it).
+        chain = self._chain if allow_compiled else None
+        if (chain is not None and chain.is_compiled()
+                and method == "__call__" and not model_id
+                and len(args) == 1 and not kwargs):
+            result = await _chain_result(chain.submit(args[0]), timeout_s)
+            return (result, None) if with_tag else result
         await self._live_cache().refresh_async()
         # Cold-start path (scale-to-zero): a deployment parked at zero
         # replicas has an empty route table. Queue here — NOT 500 — and
@@ -489,15 +599,24 @@ class ProxyActor:
         req = Request(request.method, path, dict(request.query),
                       dict(request.headers), body, json_body)
         model_id = request.headers.get("serve_multiplexed_model_id")
+        # streaming responses are replica-affine (the stream_next follow-ups
+        # must reach the replica holding the stream): keep them dynamic
+        stream = bool(isinstance(json_body, dict) and json_body.get("stream"))
         try:
             result, tag = await router.submit(
                 "__call__", (req,), {}, model_id=model_id, with_tag=True,
-                prefix_key=prompt_prefix_key(json_body))
+                prefix_key=prompt_prefix_key(json_body),
+                allow_compiled=not stream)
         except Exception as e:  # noqa: BLE001 - surface as HTTP 500
             return web.json_response({"error": repr(e)}, status=500)
         if isinstance(result, dict) and "__sse_stream__" in result:
-            # streams are replica-affine: the follow-up stream_next calls
-            # go to the replica (tag) that holds the stream
+            if tag is None:
+                # the compiled path cannot anchor a replica-affine stream:
+                # the deployment opened one for a body without stream=true
+                return web.json_response(
+                    {"error": "streaming response requires "
+                              '"stream": true in the request body'},
+                    status=400)
             return await self._stream_sse(request, router, tag,
                                           result["__sse_stream__"])
         if isinstance(result, web.Response):
@@ -602,6 +721,21 @@ class ProxyActor:
         return self.port
 
     # ------------------------------------------------------- test support
+    async def chain_status(self, deployment: str) -> dict:
+        """Compiled-ingress introspection: whether the deployment's chain is
+        live, its lanes' replicas and its lifetime counters."""
+        router = self._routers.get(deployment)
+        if router is None:
+            return {"compiled": False, "chain": False}
+        # a status poll also advances the (rate-limited) table refresh, so
+        # watching a degraded chain drives its re-spread check even when
+        # the deployment is idle
+        try:
+            await router._refresh()
+        except Exception:
+            pass
+        return router.chain_status()
+
     async def rpc_audit_start(self) -> bool:
         """Head-RPC audit between start/stop, recorded INSIDE the proxy
         process (the zero-control-plane-RPCs-per-warm-request contract is
@@ -618,6 +752,14 @@ class ProxyActor:
         return self._audit.stop()
 
     async def stop(self):
+        # a chain's shutdown joins its threads: keep it off the loop
+        loop = asyncio.get_running_loop()
+        for router in list(self._routers.values()):
+            try:
+                await asyncio.wait_for(
+                    loop.run_in_executor(None, router.shutdown_chain), 20)
+            except Exception:
+                pass
         if self._runner is not None:
             await self._runner.cleanup()
         return True

@@ -901,7 +901,7 @@ def ring_ranks(rank, world, tmp, cases):
     mesh = build_mesh(cases[0][1], device_type="cpu")
     sp = cases[0][1]["sp"]
     out["contract"] = []
-    for T, Dh in ((32 * sp, 160), (32 * sp + 1, 32)):
+    for T, Dh in ((32 * sp, 320), (32 * sp + 1, 32)):
         q = torch.zeros(2, 4, T, Dh)
         try:
             with use_mesh(mesh):

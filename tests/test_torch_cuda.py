@@ -12,6 +12,8 @@ rtol=1e-4; gradients in f32, its atol=5e-4, rtol=1e-3; bf16, one bf16 step
 version both compute in f32 and round once; lse and Delta are f32 in both.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -114,6 +116,43 @@ def test_padded_head_dim_launches_the_kernels(cuda, dtype, D):
     for got, want in zip(grads, P.flash_attention_bwd_reference(
             q, k, v, ref_out, ref_lse, do, True)):
         _close(got, want, TOL_GRAD[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [160, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [100, 256])
+def test_wide_heads_launch_and_match_plain_versions(cuda, dtype, D, causal,
+                                                    T):
+    # head dims past 128 run K1-K3 at 256 (160 zero-padded), each kernel's
+    # grid doubled and a block owning 128 of the output columns: O, lse
+    # and the gradients against the plain versions, one launch of each
+    q, k, v = _qkv(cuda, dtype, T=T, D=D, seed=17)
+    do = _qkv(cuda, dtype, T=T, D=D, seed=18)[0]
+    kernels = (P.flash_attention, P.flash_attention_bwd_dq,
+               P.flash_attention_bwd_dkv)
+    before = [f.launches for f in kernels]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = P.flash_attention(*leaves, causal)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert [f.launches for f in kernels] == [b + 1 for b in before]
+    assert out.shape == q.shape and all(g.shape == q.shape for g in grads)
+    _, lse = P.flash_attention_fwd(q, k, v, causal)
+    ref_out, ref_lse = P.flash_attention_reference(q, k, v, causal)
+    _close(out, ref_out, TOL[dtype])
+    _close(lse, ref_lse, TOL_LSE)
+    for got, want in zip(grads, P.flash_attention_bwd_reference(
+            q, k, v, ref_out, ref_lse, do, causal)):
+        _close(got, want, TOL_GRAD[dtype])
+
+
+@pytest.mark.cuda
+def test_head_dim_past_256_raises_on_the_card(cuda):
+    q = torch.zeros((1, 2, 128, 320), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 320 > 256"):
+        P.flash_attention(q, q, q)
 
 
 @pytest.mark.cuda
@@ -1069,3 +1108,177 @@ def test_serve_replicas_across_cards(cuda):
     assert sorted(vis for vis, _ in cards) == ["0", "1"]
     assert cards[0][1] != cards[1][1]
     assert got == [want, want]
+
+
+@pytest.mark.cuda
+def test_serve_compiled_scorer_on_the_card(cuda):
+    # a scorer deployment served compiled (serve.run(..., compiled=True))
+    # on two num_gpus=1 replicas of the card, each entry of the chain one
+    # gpt2.forward (K1) over its requests: the logits over HTTP within 0.1
+    # of the same forward in this process, the requests on the chain's
+    # rings, its lanes over both replicas, K1 = 12 x forwards in each;
+    # nothing of the session is left after the shutdowns
+    import base64
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import gpt2
+
+    T, n = 128, 8
+    cfg = gpt2.GPT2Config.preset("gpt2-125m", attn_impl="flash",
+                                 remat=False)
+    params = gpt2.init_params(torch.Generator().manual_seed(0), cfg, cuda)
+    g = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(1, 257, (T,), generator=g).tolist()
+               for _ in range(n)]
+    with torch.inference_mode():
+        refs = [gpt2.forward(params, torch.tensor([p], device=cuda),
+                             cfg)[0, -1].float().cpu() for p in prompts]
+    del params
+
+    class Scorer:
+        def __init__(self):
+            import torch as _torch
+
+            from ray_tpu_torch.models import gpt2 as _gpt2
+            from ray_tpu_torch.ops import flash_attention as _fa
+
+            self.fa, self.gpt2 = _fa, _gpt2
+            self.cfg = _gpt2.GPT2Config.preset("gpt2-125m",
+                                               attn_impl="flash", remat=False)
+            self.params = _gpt2.init_params(
+                _torch.Generator().manual_seed(0), self.cfg, "cuda")
+            self.forwards = 0
+            self.fa.flash_attention.launches = 0
+
+        def batch_call(self, requests):
+            import base64 as _b64
+
+            import torch as _torch
+
+            ids = _torch.tensor([r.get("tokens") for r in requests],
+                                device="cuda")
+            with _torch.inference_mode():
+                last = self.gpt2.forward(self.params, ids, self.cfg)[:, -1]
+            self.forwards += 1
+            return [{"logits": _b64.b64encode(
+                row.float().cpu().numpy().tobytes()).decode()}
+                for row in last]
+
+        def __call__(self, request):
+            return self.batch_call([request])[0]
+
+        def counts(self):
+            return self.forwards, self.fa.flash_attention.launches
+
+    rt.init(num_cpus=4, num_gpus=2)
+    try:
+        serve.run(serve.deployment(Scorer, name="cscore", num_replicas=2,
+                                   ray_actor_options={"num_gpus": 1},
+                                   chain_config={
+                                       "lanes": 2, "batch_max": 4,
+                                       "channel_capacity": 4 << 20}).bind(),
+                  route_prefix="/cscore", compiled=True)
+        url = f"http://127.0.0.1:{serve.start()}/cscore"
+        outs = [_post_json(url, {"tokens": prompts[0]})[1]]
+        proxy = rt.get_actor("serve-proxy")
+        deadline = time.time() + 120
+        while not rt.get(proxy.chain_status.remote("cscore"),
+                         timeout=60).get("live"):
+            assert time.time() < deadline, "the chain never went live"
+            time.sleep(0.1)
+        outs += [_post_json(url, {"tokens": p})[1] for p in prompts]
+        st = rt.get(proxy.chain_status.remote("cscore"), timeout=60)
+        table = rt.get(rt.get_actor("serve-controller")
+                       .get_routing_table.remote("cscore"), timeout=60)
+        counts = [rt.get(r.handle_request.remote("counts", (), {}),
+                         timeout=60) for r in table["replicas"].values()]
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    got = [torch.frombuffer(bytearray(base64.b64decode(o["logits"])),
+                            dtype=torch.float32) for o in outs]
+    for o, r in zip(got, refs[:1] + refs):
+        assert float((o - r).abs().max()) <= 0.1
+    assert st["stats"]["compiled"] >= n, st
+    assert len({t for lane in st["lane_targets"] for _d, t in lane}) == 2
+    assert len(counts) == 2 and all(f >= 1 for f, _ in counts)
+    assert all(k1 == cfg.n_layer * f for f, k1 in counts), counts
+
+
+@pytest.mark.cuda
+def test_serve_disagg_across_cards(cuda):
+    # build_disagg_llm_deployment with its prefill replica on a daemon of
+    # card 0 and its decode replica on a daemon of card 1
+    # (CUDA_VISIBLE_DEVICES "0" and "1", steered by resource labels): the
+    # KV blob crosses nodes, the greedy tokens equal one card's server in
+    # this process, and the replicas report distinct card uuids; nothing of
+    # the session is left after the shutdowns
+    import dataclasses
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.serve.disagg import (DisaggLLMServer, PrefillServer,
+                                            build_disagg_llm_deployment)
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: a pool a card")
+    engine = dict(max_seq_len=512, seed=0, prefill_chunk_size=64,
+                  kv_block_size=16, kv_blocks=64)
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, 257, (n,), generator=g).tolist()
+               for n in (96, 200)]
+    local = LLMServer(preset="gpt2-125m", max_batch=4, **engine)
+    try:
+        want = [local({"prompt_ids": p, "max_tokens": 24})["choices"][0]
+                ["token_ids"] for p in prompts]
+    finally:
+        local.shutdown()
+
+    def card(self):
+        import os as _os
+
+        import torch as _torch
+
+        dev = _torch.cuda.current_device()
+        return (_os.environ.get("CUDA_VISIBLE_DEVICES"),
+                str(_torch.cuda.get_device_properties(dev).uuid))
+
+    CardPrefill = type("CardPrefill", (PrefillServer,), {"card": card})
+    CardDecode = type("CardDecode", (DisaggLLMServer,), {"card": card})
+    app = build_disagg_llm_deployment(
+        "gpt2-125m", name="xdisagg", num_gpus=1,
+        prefill_resources={"prefill_pool": 1},
+        decode_resources={"decode_pool": 1}, **engine)
+    pre = dataclasses.replace(app.init_kwargs["prefill_handle"],
+                              func_or_class=CardPrefill)
+    app = dataclasses.replace(app, func_or_class=CardDecode, init_kwargs={
+        **app.init_kwargs, "prefill_handle": pre})
+    c = Cluster(num_cpus=0)
+    try:
+        nodes = {}
+        for vis, pool in (("0", "prefill_pool"), ("1", "decode_pool")):
+            nodes[pool] = c.add_node(num_cpus=2, num_gpus=1,
+                                     resources={pool: 1},
+                                     env={"CUDA_VISIBLE_DEVICES": vis})
+        c.connect()
+        c.wait_for_nodes(3)
+        h = serve.run(app, name="xdisagg")
+        got = [h.remote({"prompt_ids": p, "max_tokens": 24}).result(
+            timeout=300)["choices"][0]["token_ids"] for p in prompts]
+        st = h.stats.remote().result(timeout=60)
+        cards = [h.card.remote().result(timeout=60),
+                 serve.get_deployment_handle("xdisagg-prefill")
+                 .card.remote().result(timeout=60)]
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+        c.shutdown()
+    assert c.processes() == [] and c.segments() == []
+    assert got == want
+    assert st["prefill_fetches"] >= 2 and st["plane_fetches"] >= 1, st
+    assert st["blocks_imported"] > 0, st
+    assert sorted(vis for vis, _ in cards) == ["0", "1"]
+    assert cards[0][1] != cards[1][1]

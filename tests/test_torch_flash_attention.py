@@ -87,10 +87,10 @@ def test_flash_rejects_causal_unequal_lengths():
 
 
 def test_flash_rejects_unsupported_head_dim():
-    # head dims up to 128 are padded to the kernels' widths; past 128 the
-    # kernels' register budget ends
-    q, k, v = _t(*_qkv(T=64, D=160))
-    with pytest.raises(ValueError, match="head dim 160"):
+    # head dims up to 256 are padded to the kernels' widths; past 256 no
+    # kernel is built
+    q, k, v = _t(*_qkv(T=64, D=320))
+    with pytest.raises(ValueError, match="head dim 320 > 256"):
         P.flash_attention(q, k, v)
 
 

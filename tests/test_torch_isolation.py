@@ -5,8 +5,9 @@ In a fresh interpreter, import every module of ray_tpu_torch and chip_smoke
 runtime's control plane (head, worker, client, API), the compiled DAGs
 (`ray_tpu_torch.dag`) and the serve control plane (`ray_tpu_torch.serve`:
 controller, proxy, router, handle, api, autoscaling, batching, multiplex,
-live signals) import no torch either, and the processes the runtime starts
-run the port's own modules.
+live signals, the compiled ingress chain and the gRPC proxy) import no
+torch either, nor grpc (the gRPC proxy imports it when it starts), and the
+processes the runtime starts run the port's own modules.
 """
 
 import os
@@ -86,8 +87,8 @@ DAG = ("ray_tpu_torch.dag", *(f"ray_tpu_torch.dag.{m}" for m in (
 # callable inside a replica does)
 SERVE_PLANE = ("ray_tpu_torch.serve", *(f"ray_tpu_torch.serve.{m}" for m in (
     "api", "autoscaling", "batching", "build_app", "compiled_chain",
-    "controller", "handle", "live_signals", "multiplex", "proxy",
-    "replica")))
+    "controller", "grpc_proxy", "handle", "live_signals", "multiplex",
+    "proxy", "replica")))
 
 CONTROL_PLANE_PROBE = r"""
 import json, sys
@@ -100,7 +101,8 @@ for name in ("ray_tpu_torch.core.gcs", "ray_tpu_torch.core.head_main",
              "ray_tpu_torch.dag.compiled", *SERVE_PLANE):
     __import__(name)
 print(json.dumps(sorted(m for m in sys.modules
-                        if m.split(".")[0] in ("torch", "jax", "ray_tpu"))))
+                        if m.split(".")[0] in ("torch", "jax", "ray_tpu",
+                                               "grpc"))))
 """
 
 

@@ -10,8 +10,9 @@ adapters share the base model's entries; the owner dying mid-fetch
 degrades to a local prefill; bindings survive a head restart through the
 publishers' re-announce.
 
-Where the JAX test runs serve deployments (their mirror is ROADMAP item
-18b, with `DisaggLLMServer`), the port's runs plain actors: the cross-replica case uses a `PrefillServer`
+Where the JAX test runs serve deployments (their mirror, with
+`DisaggLLMServer`, is in tests/test_torch_serve_disagg.py), the port's runs
+plain actors: the cross-replica case uses a `PrefillServer`
 actor and an `LLMServer(cluster_prefix_cache=True)` actor, and its tokens
 equal the JAX package's `LLMServer` on the same checkpoint; the routing
 case holds the prefill replica's advertised prefix roots (what the

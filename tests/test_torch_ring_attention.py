@@ -206,16 +206,17 @@ def test_two_ranks_match_jax(two, case):
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_shape_outside_the_contract_raises_on_every_rank(two, four, world):
-    # only a head dim past 128 is outside it: ragged chunks are padded and
-    # head dims up to 128 padded to the kernels' widths
+    # only a head dim past 256 is outside it: ragged chunks are padded and
+    # head dims up to 256 padded to the kernels' widths
     _, outs = {2: two, 4: four}[world]
     for o in outs:
         big_head, odd_seq = o["contract"]
-        assert "head dim 160 > 128" in big_head
+        assert "head dim 320 > 256" in big_head
         assert "must divide by sp" in odd_seq
-    with pytest.raises(ValueError, match="head dim 160"):
-        PR.check_ring_shape(96, 160)
-    for n, dh in ((200, 64), (96, 128), (250, 48), (4000, 80)):
+    with pytest.raises(ValueError, match="head dim 320"):
+        PR.check_ring_shape(96, 320)
+    for n, dh in ((200, 64), (96, 128), (250, 48), (4000, 80), (96, 160),
+                  (96, 256)):
         PR.check_ring_shape(n, dh)
 
 

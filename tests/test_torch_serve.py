@@ -295,29 +295,6 @@ def test_prefix_map_evicts_dead_replica_mappings():
     assert mapped not in r._prefix_map.values()
 
 
-def test_compiled_deployment_is_refused_naming_item_18b():
-    table = {"replicas": {"r1": object()}, "models": {}, "slo": None,
-             "version": 1, "compiled": True}
-
-    class FakeCtrl:
-        class get_routing_table:       # noqa: N801
-            @staticmethod
-            def remote(dep):
-                async def _get():
-                    return table
-
-                return _get()
-
-    r = PP._AsyncRouter(FakeCtrl(), "d")
-    with pytest.raises(NotImplementedError, match="18b"):
-        asyncio.run(r.submit("__call__", (), {}))
-    for name in ("CompiledServeChain", "ChainResponse"):
-        with pytest.raises(NotImplementedError, match="18b"):
-            getattr(serve, name)()
-    with pytest.raises(NotImplementedError, match="18b"):
-        serve.start_grpc()
-
-
 def test_watchdog_flags_sustained_shedding_unit():
     """The head watchdog flags a route only after sheds persist across
     consecutive passes (one-pass bursts are the bounded queue doing its

@@ -3,16 +3,20 @@
 package.
 
 The mirror of `tests/test_serve_http.py` (routing, 404, the LLM
-deployment, the OpenAI-compatible app, SSE streaming; not gRPC, which is
-ROADMAP item 18b) and of `tests/test_serve_plane.py`'s 429 shed. The LLM
+deployment, the OpenAI-compatible app, SSE streaming, the gRPC ingress)
+and of `tests/test_serve_plane.py`'s 429 shed. The LLM
 apps serve one seeded float32 checkpoint (as `tests/test_torch_serve_openai.py`
 builds it) on the CPU in replica processes; their answers over HTTP and
 through a handle equal the JAX package's `LLMServer` and `OpenAIServer`
 called in-process on the same checkpoint: equal tokens and text. Status
 codes, `Retry-After`, content types, bodies and the SSE framing are the
-ones the JAX proxy writes (both run the same aiohttp handlers).
+ones the JAX proxy writes (both run the same aiohttp handlers). The gRPC
+ingress answers a deployment on the runtime, and both packages' gRPC
+servers, driven through one stand-in router, give the same status codes,
+details, trailers and bodies (OK, NOT_FOUND, RESOURCE_EXHAUSTED, INTERNAL).
 """
 
+import asyncio
 import json
 import threading
 import time
@@ -130,21 +134,6 @@ def test_http_proxy_404(cluster, port):
     assert status == 404
     assert headers["Content-Type"] == "application/json; charset=utf-8"
     assert json.loads(body) == {"error": "no route for /definitely-not-a-route"}
-
-
-def test_compiled_deployment_answers_500_naming_item_18b(cluster, port):
-    @serve.deployment(compiled=True)
-    class Fast:
-        def __call__(self, request):
-            return {"ok": True}
-
-    h = serve.run(Fast.bind(), name="fast", route_prefix="/fast")
-    assert h.remote({}).result(timeout=TIMEOUT) == {"ok": True}
-    status, _, body = _http(f"http://127.0.0.1:{port}/fast", {})
-    assert status == 500
-    assert "NotImplementedError" in json.loads(body)["error"]
-    assert "18b" in json.loads(body)["error"]
-    serve.delete("fast")
 
 
 def test_llm_builders_run_on_cuda_unless_told():
@@ -361,3 +350,109 @@ def test_check_open_ports(cluster, port):
     report = check_open_ports()
     assert report["open_to_network"] == [], report
     assert report["loopback_only"], report
+
+
+def test_grpc_ingress(cluster):
+    """JSON over grpc's generic method, routed to a deployment by the
+    `application` metadata key."""
+    import grpc
+
+    from ray_tpu_torch.serve.grpc_proxy import SERVICE
+
+    @serve.deployment
+    class GEcho:
+        def __call__(self, request):
+            return {"got": request.get("q"), "method": request.method}
+
+    serve.run(GEcho.bind(), route_prefix="/")
+    grpc_port = serve.start_grpc()
+    assert serve.start_grpc() == grpc_port   # one ingress a cluster
+    channel = grpc.insecure_channel(f"127.0.0.1:{grpc_port}")
+    call = channel.unary_unary(f"/{SERVICE}/Call", request_serializer=None,
+                               response_deserializer=None)
+    try:
+        reply = call(json.dumps({"q": "hello"}).encode(),
+                     metadata=(("application", "GEcho"),), timeout=60)
+        assert json.loads(reply) == {"got": "hello", "method": "GRPC"}
+    finally:
+        channel.close()
+        serve.delete("GEcho")
+
+
+def _grpc_outcomes(proxy_mod, grpc_mod) -> list:
+    """Each application's (status code name, details, trailers) or
+    ("OK", body) through a package's gRPC server, over a stand-in router:
+    "echo" answers, "full" is shed by admission, "boom" raises, and "nope"
+    is no deployment."""
+    import grpc
+
+    class Ctrl:
+        class get_routes:             # noqa: N801
+            @staticmethod
+            def remote():
+                async def routes():
+                    return {"/": "echo", "/b": "boom", "/f": "full"}
+
+                return routes()
+
+    class Router:
+        def __init__(self, controller, dep):
+            self.dep = dep
+
+        async def admission_check(self):
+            if self.dep == "full":
+                return {"reason": "queue_full", "retry_after_s": 2.0,
+                        "projected_wait_s": 3.5}
+            return None
+
+        async def submit(self, method, args, kwargs, **kw):
+            if self.dep == "boom":
+                raise ValueError("boom")
+            req = args[0]
+            return {"got": req.get("q"), "method": req.method,
+                    "app": self.dep, "compiled": kw.get("allow_compiled")}
+
+        def shutdown_chain(self):
+            pass
+
+    async def drive():
+        saved = proxy_mod._AsyncRouter
+        proxy_mod._AsyncRouter = Router
+        srv = grpc_mod._GrpcServer(Ctrl())
+        try:
+            port = await srv.start(0)
+            out = []
+            async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+                call = ch.unary_unary(f"/{grpc_mod.SERVICE}/Call")
+                for app in (None, "echo", "nope", "boom", "full"):
+                    md = (("application", app),) if app else ()
+                    try:
+                        reply = await call(json.dumps({"q": "hi"}).encode(),
+                                           metadata=md, timeout=30)
+                        out.append(("OK", json.loads(reply)))
+                    except grpc.aio.AioRpcError as e:
+                        out.append((e.code().name, e.details(),
+                                    dict(list(e.trailing_metadata() or ()))))
+            return out
+        finally:
+            await srv.stop()
+            proxy_mod._AsyncRouter = saved
+
+    return asyncio.run(drive())
+
+
+def test_grpc_status_codes_and_bodies_match_jax():
+    from ray_tpu.serve import grpc_proxy as JG
+    from ray_tpu.serve import proxy as JPX
+    from ray_tpu_torch.serve import grpc_proxy as PG_
+    from ray_tpu_torch.serve import proxy as PPX
+
+    want = _grpc_outcomes(JPX, JG)
+    got = _grpc_outcomes(PPX, PG_)
+    assert got == want
+    assert [o[0] for o in got] == ["OK", "OK", "NOT_FOUND", "INTERNAL",
+                                   "RESOURCE_EXHAUSTED"]
+    assert got[1][1] == {"got": "hi", "method": "GRPC", "app": "echo",
+                         "compiled": True}
+    assert got[4][2].get("retry-after") == "2", got[4]
+    assert PG_.SERVICE == JG.SERVICE == "ray_tpu.serve.ServeAPIService"
