@@ -216,6 +216,23 @@ Phases, each reported on its own line:
    ms; (d) one gRPC request to the scorer, its logits equal. Across two
    cards, tests/test_torch_cuda.py::test_serve_disagg_across_cards puts
    the prefill and decode replicas on daemons of one card each.
+20. the data plane feeding the trainer (phase_train_service): a runtime
+   with one GPU; 192 rows of 1025 Zipf-ranked tokens written by numpy as
+   four .npy shards, read by the port's Data library (read_numpy ->
+   random_shuffle(seed=0) -> an actor-pool map_batches that checks and
+   casts the rows); the SPMD trainer (controller actor -> one
+   TrainWorker with num_gpus=1 -> train.report) trains phase 6's
+   configuration on cuda:<local rank> for 6 steps of the shard's global
+   batches: the worker's batch digests equal this process's iteration of
+   the same Dataset, its K1/K2/K3 launches, counted in its own process,
+   exactly 6 x (24, 12, 12), its losses within TOL_TRAIN_LOSS of the same
+   6 steps here from the same seed, the TrainState it checkpointed with
+   its last report restores here to its last params; no error, no
+   restart, final world size 1; the worker's first answer, step ms
+   against phase 6's, the ingest wait a step and the fit's wall time.
+   Across two cards, tests/test_torch_cuda.py::test_trainer_across_cards
+   runs two GPU workers over NCCL on a dp=2 mesh (each on its own card,
+   cuda:<local rank>) against one card.
 Phase 10 also runs the ring at a ragged chunk (Llama-3-8B widths,
 T=16000 on sp=4: chunks of 4000 padded to 4096, the padded keys masked by
 K1's and K2's kv_len) and holds each padded chunk pair against the plain
@@ -240,8 +257,8 @@ that expansion. Phases 4-5 (GPT-2 inference), 5b (the OpenAI server), 6
 (GPT-2 training), 6b's (b) (data-parallel training), 6c's (a) and (c)
 (sharded training), 7, 8, 9, each case of 10, 11, 12 and 13's (b) are
 the main paths: every kernel's launch count is set to 0 before each and read right
-after; in phases 14-19 each actor, task or replica counts its own launches
-from 0. The line before the last lists the kernels as JSON, with the GPT-2
+after; in phases 14-20 each actor, task, replica or train worker counts its
+own launches from 0. The line before the last lists the kernels as JSON, with the GPT-2
 training path's counts under "launches", every path's under
 "launches_by_path", the ring's non-causal chunk pair under "ring_chunk",
 its ragged one under "ring_ragged_chunk" and the head dim 80, 256 and 160
@@ -294,6 +311,7 @@ from ray_tpu_torch.parallel.mesh import (MeshConfig, build_hierarchical_mesh,
                                          hier_groups)
 from ray_tpu_torch.train import checkpoint as ckpt_lib
 from ray_tpu_torch.train import spmd
+from ray_tpu_torch.train.worker_group import WORKER_DEVICE_ENV
 from ray_tpu_torch.util import collective as col
 from ray_tpu_torch.util.collective._comm import HOST_STAGED
 from ray_tpu_torch.util.collective.hierarchy import BYTES as hier_bytes
@@ -1464,6 +1482,10 @@ def _log_profile(label, profile, profile_at, secs, preset=None) -> None:
         f"profiler): " + _profile_text(profile, _step_ms(secs, profile_at)))
 
 
+# phase 6's median step ms, for phase 20's worker to stand against
+TRAIN_REF: dict = {}
+
+
 def phase_train(card: str) -> tuple:
     """GPT-2 training through compile_gpt2_train with bench.py's defaults,
     flash attention, then the dense path from the same params. The flash
@@ -1510,6 +1532,7 @@ def phase_train(card: str) -> tuple:
         f"peak memory {peak_gb:.2f} GB (flash)")
     _log_profile("flash", profile, PROFILE_STEP, secs)
     _log_profile("dense", dprofile, dense_profile_at, dsecs)
+    TRAIN_REF["step_ms"] = rate["flash"][0]     # for phase 20
     for name, (ms, tps, mfu) in rate.items():
         log(f"[train {preset}] {name}: step {ms:.2f} ms (median of steps "
             f"3+, the profiled one left out), {tps:.0f} tokens/s, MFU "
@@ -5717,6 +5740,268 @@ def phase_serve_compiled(card: str) -> dict:
                     raise AssertionError("the cluster leaked")
 
 
+# ------------------------------ phase 20: the data plane feeding the trainer
+# A token corpus written by numpy as .npy shards, read by the port's Data
+# library (read_numpy -> random_shuffle -> an actor-pool map_batches that
+# casts and checks each row), and the port's SPMD trainer training phase 6's
+# configuration on it in a GPU worker of its own (controller actor ->
+# TrainWorker with num_gpus=1 -> train.report). The worker counts its own
+# launches from 0; the driver then runs the same steps on the same batches
+# and restores the worker's checkpoint.
+TS_ROWS = 192          # 8 global batches of TRAIN_B=24 rows of SEQ+1 tokens
+TS_SHARDS = 4
+TS_STEPS = 6
+TS_ZIPF = 1.2          # the corpus's token ranks: Zipf, so there is a
+                       # unigram to learn
+TS_CPUS = 8
+
+
+def _ts_corpus(root: str) -> None:
+    """TS_ROWS rows of SEQ+1 int32 tokens, Zipf-distributed over the
+    vocabulary (rank r has weight ~ r^-TS_ZIPF), as TS_SHARDS .npy files."""
+    import numpy as np
+
+    vocab = gpt2.GPT2Config.preset(PRESET).vocab_size
+    rng = np.random.default_rng(20)
+    ranks = rng.zipf(TS_ZIPF, (TS_ROWS, SEQ + 1))
+    toks = (np.minimum(ranks, vocab) - 1).astype(np.int32)
+    for i, part in enumerate(np.array_split(toks, TS_SHARDS)):
+        np.save(os.path.join(root, f"tokens-{i:02d}.npy"), part)
+
+
+class TokenRows:
+    """Phase 20's actor-pool stage: a block's "data" column checked to be
+    rows of SEQ+1 tokens, cast to the int32 "tokens" the step takes."""
+
+    def __init__(self):
+        self.width = SEQ + 1
+
+    def __call__(self, batch):
+        import numpy as np
+
+        toks = np.asarray(batch["data"])
+        if toks.ndim != 2 or toks.shape[1] != self.width:
+            raise ValueError(f"token rows of shape {toks.shape}, want "
+                             f"(n, {self.width})")
+        return {"tokens": toks.astype(np.int32)}
+
+
+def _ts_dataset(root: str):
+    from ray_tpu_torch import data as rd
+
+    return (rd.read_numpy(root).random_shuffle(seed=0)
+            .map_batches(TokenRows, concurrency=2))
+
+
+def _ts_program(device):
+    cfg = gpt2.GPT2Config.preset(PRESET, attn_impl="flash", remat=True,
+                                 remat_policy="dots", ce_chunk=0)
+    opt = spmd.default_optimizer(lr=6e-4, warmup=2, total_steps=1000)
+    return spmd.compile_gpt2_train(cfg, optimizer=opt, device=device)
+
+
+def _rows_digest(rows) -> str:
+    import hashlib
+
+    return hashlib.sha256(rows.tobytes()).hexdigest()[:16]
+
+
+def _params_digest(params) -> str:
+    """One hash of every param leaf's bytes, in sorted-key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for key, arr in sorted(gpt2.params_to_numpy(params).items()):
+        h.update(key.encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()[:16]
+
+
+def _ts_loop(config) -> None:
+    """Phase 20's train loop, run by the SPMD trainer in its GPU worker:
+    phase 6's configuration from seeded params on the worker's card,
+    TS_STEPS steps on the "train" shard's global batches. Each report
+    carries every step so far (loss, ms, the ms the loop waited on the
+    shard's iterator, the batch's digest, this process's launches since
+    before the first step, the wall time); the last also the params'
+    digest, and rank 0 checkpoints the TrainState with it into
+    `config["ckpt"]`, a directory the phase removes."""
+    import numpy as np
+
+    from ray_tpu_torch import train
+
+    ts_loop = time.time()
+    _no_tf32()
+    train.maybe_init_distributed()     # one worker: no group
+    ctx = train.get_context()
+    device = (torch.device(os.environ[WORKER_DEVICE_ENV])
+              if torch.device(DEVICE).type == "cuda" else torch.device(DEVICE))
+    prog = _ts_program(device)
+    state = prog.init_fn(torch.Generator(device="cpu").manual_seed(0))
+    ts_ready = time.time()
+    batches = train.get_dataset_shard("train").iter_global_batches(
+        batch_size=TRAIN_B)
+    hist = []
+    _zero_counts()
+    for i in range(TS_STEPS):
+        t0 = time.perf_counter()
+        gi, batch = next(batches)
+        rows = np.array(batch["tokens"])
+        t1 = time.perf_counter()
+        state, m = prog.step_fn(state, {"tokens": torch.from_numpy(
+            rows).to(device)})
+        loss = float(m["loss"])                    # syncs
+        t2 = time.perf_counter()
+        hist.append({"step": gi, "loss": loss, "step_ms": 1e3 * (t2 - t1),
+                     "wait_ms": 1e3 * (t1 - t0),
+                     "digest": _rows_digest(rows),
+                     "launches": _flash_counts(), "ts": time.time()})
+        out = {"hist": list(hist), "pid": os.getpid(),
+               "device": str(device), "ts_loop": ts_loop,
+               "ts_ready": ts_ready}
+        ckpt = None
+        if i == TS_STEPS - 1:
+            out["params"] = _params_digest(state.params)
+            if ctx.get_world_rank() == 0:
+                spmd.save_state_sharded(state, config["ckpt"])
+                ckpt = train.Checkpoint(config["ckpt"])
+        train.report(out, checkpoint=ckpt)
+    batches.close()
+
+
+def _ts_fit(corpus: str, tmp: str) -> tuple:
+    """The runtime up (one GPU), the trainer's fit (its run storage and
+    the worker's checkpoint under `tmp`), and the same Dataset's first
+    TS_STEPS global batches iterated here: (result, fit s, the fit's
+    start on the wall clock, [rows])."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.core import api as rt_api
+    from ray_tpu_torch.train.ingest import DatasetShard
+
+    rt.init(num_cpus=TS_CPUS, num_gpus=1)
+    try:
+        ds = _ts_dataset(corpus)
+        log("[train20] " + ds.explain().replace("\n", "; "))
+        t_fit, t0 = time.time(), time.perf_counter()
+        result = train.SpmdTrainer(
+            _ts_loop, train_loop_config={"ckpt": os.path.join(tmp, "ckpt")},
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=train.RunConfig(
+                name="phase20", storage_path=os.path.join(tmp, "runs")),
+            datasets={"train": ds}).fit()
+        fit_s = time.perf_counter() - t0
+        rows = []
+        batches = DatasetShard(ds, 0, 1).iter_global_batches(
+            batch_size=TRAIN_B)
+        for _, (_, batch) in zip(range(TS_STEPS), batches):
+            rows.append(np.array(batch["tokens"]))
+        batches.close()
+        _shutdown_runtime(rt, rt_api)
+    finally:
+        if rt.is_initialized():
+            rt.shutdown()
+    return result, fit_s, t_fit, rows
+
+
+def phase_train_service(card: str) -> dict:
+    """The data plane feeding the SPMD trainer on the card (phase 20): the
+    worker's batches equal this process's iteration of the same Dataset,
+    its launches exactly TS_STEPS x (24, 12, 12), its losses within
+    TOL_TRAIN_LOSS of the same steps here, its checkpoint restores to its
+    last params. Returns the worker's launches, counted in its process."""
+    cfg = gpt2.GPT2Config.preset(PRESET)
+    per_step = (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer)
+    want = tuple(TS_STEPS * n for n in per_step)
+    tmp = tempfile.mkdtemp(prefix="phase20_")
+    try:
+        corpus = os.path.join(tmp, "corpus")
+        os.makedirs(corpus)
+        _ts_corpus(corpus)
+        for mod in ("pyarrow", "pandas", "PIL"):
+            try:
+                __import__(mod)
+                have = "imports"
+            except ImportError:
+                have = "is absent"
+            log(f"[train20] {mod} {have} here (the phase reads .npy and "
+                f"needs none of them)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        result, fit_s, t_fit, ref_rows = _ts_fit(corpus, tmp)
+        last = result.metrics
+        hist = last["hist"]
+        log(f"[train20] fit {fit_s:.1f} s (runtime, controller, GPU worker, "
+            f"{TS_STEPS} steps, checkpoint): error {result.error}, restarts "
+            f"{result.restarts}, final world size "
+            f"{result.final_world_size}; the worker pid {last['pid']} on "
+            f"{last['device']}; its first answer "
+            f"{hist[0]['ts'] - t_fit:.2f} s after fit(): the loop started "
+            f"at {last['ts_loop'] - t_fit:.2f} s, program and params on the "
+            f"card after {last['ts_ready'] - last['ts_loop']:.2f} s more, "
+            f"then the first batch's wait and step; on {card}")
+        if (result.error is not None or result.restarts
+                or result.final_world_size != 1 or len(hist) != TS_STEPS):
+            raise AssertionError("the trainer's run was not clean")
+        got = [h["digest"] for h in hist]
+        ref = [_rows_digest(r) for r in ref_rows]
+        log(f"[train20] batch digests: worker {got}, this process {ref}")
+        if got != ref:
+            raise AssertionError("the worker's batches differ from the "
+                                 "Dataset's here")
+        launches = tuple(hist[-1]["launches"])
+        log(f"[train20] worker K1/K2/K3 launches {launches} over {TS_STEPS} "
+            f"steps, counted in its process (want {want})")
+        if launches != want:
+            raise AssertionError(f"launches {launches} != {want}")
+
+        # the same steps here, from the same seed, on the same batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        _no_tf32()
+        prog = _ts_program(DEVICE)
+        state = prog.init_fn(torch.Generator(device="cpu").manual_seed(0))
+        losses = []
+        for rows in ref_rows:
+            state, m = prog.step_fn(state, {"tokens": torch.from_numpy(
+                rows).to(DEVICE)})
+            losses.append(float(m["loss"]))
+        d_loss = max(abs(h["loss"] - x) for h, x in zip(hist, losses))
+        log(f"[train20] losses: worker "
+            + " ".join(f"{h['loss']:.4f}" for h in hist) + "; here "
+            + " ".join(f"{x:.4f}" for x in losses)
+            + f"; max |dloss| {d_loss:.3g} (tol {TOL_TRAIN_LOSS})")
+        if d_loss > TOL_TRAIN_LOSS or not all(
+                math.isfinite(h["loss"]) for h in hist):
+            raise AssertionError("the worker's losses disagree with this "
+                                 "process's")
+        del state
+        restored = spmd.restore_state_sharded(result.checkpoint.path, prog)
+        digest = _params_digest(restored.params)
+        log(f"[train20] checkpoint {result.checkpoint.path}: restored step "
+            f"{int(restored.step)}, params digest {digest}, the worker's "
+            f"last {last['params']}")
+        if digest != last["params"] or int(restored.step) != TS_STEPS:
+            raise AssertionError("the checkpoint does not restore the "
+                                 "worker's last params")
+        del restored, prog
+        step_ms = statistics.median(h["step_ms"] for h in hist[2:])
+        wait = [h["wait_ms"] for h in hist]
+        log(f"[train20] worker step {step_ms:.2f} ms (median of steps 3+) "
+            f"against phase 6's {TRAIN_REF.get('step_ms', float('nan')):.2f}"
+            f" ms; ingest wait a step "
+            f"{' '.join(f'{w:.2f}' for w in wait)} ms (median "
+            f"{statistics.median(wait):.2f}); fit wall {fit_s:.1f} s; on "
+            f"{card}")
+        return {f"{PRESET} trainer worker (SpmdTrainer, Dataset)": launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5845,6 +6130,13 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(phase_serve_compiled(card))
     log(f"[serve19] phase {time.perf_counter() - t0:.1f} s; script so far "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # the data plane feeding the SPMD trainer: the GPU worker's launches,
+    # counted in its own process from 0
+    t0 = time.perf_counter()
+    paths.update(phase_train_service(card))
+    log(f"[train20] phase {time.perf_counter() - t0:.1f} s; script so far "
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"[paths] K1/K2/K3 launches by path: {paths}")
 

@@ -61,7 +61,20 @@ Ported so far:
   replicas pinned by `visible_devices`, `DeploymentHandle`, the HTTP
   proxy with live-signal routing and SLO admission, `@serve.batch`,
   `@serve.multiplexed`, autoscaling with scale to zero, declarative
-  configs, `serve.llm.build_llm_deployment` / `build_openai_app`).
+  configs, `serve.llm.build_llm_deployment` / `build_openai_app`), the
+  compiled ingress chain (`serve.compiled_chain`), the gRPC proxy and
+  disaggregated prefill/decode (`serve.disagg`);
+- the streaming data plane (`data`: numpy blocks, lazy plans, the
+  streaming executor with actor-pool stages, backpressure and lineage
+  retry, distributed shuffle/sort/join/zip/groupby, the readers and
+  writers, preprocessors) and the trainer (`train`: `ScalingConfig`, a
+  card a worker unless `use_gpu=False`, the controller with its failure
+  policy, death watch and elastic sizing, `WorkerGroup` giving each worker
+  its own card (`cuda:<local rank x gpus_per_worker>`),
+  `report`/`get_context`/`get_dataset_shard`, `DatasetShard`,
+  `DataParallelTrainer`, `SpmdTrainer` on torch.distributed, and the
+  torch DDP `TorchTrainer`). Neither imports torch until a loop or
+  `iter_torch_batches` does.
 
 The runtime API (`init`, `remote`, `get`, ...) loads on first use, so
 `import ray_tpu_torch` stays cheap.

@@ -605,8 +605,10 @@ class CompiledServeChain:
                 else:
                     e._set_exc(RuntimeError(r[CHAIN_ERR]))
             else:
-                e._set(r)
+                # counted before the delivery wakes the caller, who may
+                # read the stats at once
                 self.stats["compiled"] += 1
+                e._set(r)
                 dt = time.monotonic() - getattr(e, "_t0", time.monotonic())
                 with self._lock:
                     self._lat_window.append(dt)

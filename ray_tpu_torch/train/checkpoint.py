@@ -40,7 +40,6 @@ from itertools import product
 from typing import Any, Dict, List, Optional
 
 import numpy as np
-import torch
 
 from ray_tpu_torch.train.config import CheckpointConfig
 from ray_tpu_torch.utils import fs as _fs
@@ -104,6 +103,8 @@ def _flatten_with_path(tree, prefix=()) -> List[tuple]:
 
 def _host(t: torch.Tensor) -> np.ndarray:
     """A tensor's values on the host; bf16 as its bits (`BF16_BITS`)."""
+    import torch
+
     t = t.detach()
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
@@ -111,6 +112,8 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def _dtype_name(leaf) -> str:
+    import torch
+
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             return "bfloat16"
@@ -127,6 +130,7 @@ def _chunk_windows(leaf) -> List[tuple]:
     `parallel.mesh.local_window`); a rank holds one shard, so replicated
     copies of a window are one chunk here, as the JAX package dedups
     `addressable_shards`. Anything else is one full-cover chunk."""
+    import torch
     from torch.distributed.tensor import DTensor, Partial
 
     if isinstance(leaf, DTensor):
@@ -169,6 +173,8 @@ def save_sharded(tree: Any, path: str, *, step: int = 0,
     `process_index`; each writes only the chunks it holds, so no process
     ever materializes another's shards. A single process writes the full
     set."""
+    import torch
+
     _fs.makedirs(path)
     params: Dict[str, Any] = {}
     chunks: List[dict] = []

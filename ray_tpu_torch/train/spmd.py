@@ -775,18 +775,33 @@ def restore_state_sharded(path: str, compiled: CompiledTrain, *,
 
 
 def cross_worker_grad_sync(grads: Tree, group_name: str, world_size: int,
-                           quantize=None) -> Tree:
+                           quantize=None, timeout: float = 60.0) -> Tree:
     """Average a gradient tree across the worker gang (elastic DDP): one
     fused f32 bucket through the gang's hierarchical `allreduce_tree`
     (`util.collective.DistCollectiveGroup`), its inter hop int8/fp8 with
     `quantize`. No-op at world size 1. `group_name` should carry the
-    group's generation (e.g. "ddp:g3")."""
+    group's generation (e.g. "ddp:g3").
+
+    A `kv` group (the CPU-only fallback, over the head's KV) has no device
+    path: as in the JAX package, the leaves (sorted-key order) go into one
+    fused f32 host buffer, allreduced once and divided by the world size,
+    each leaf cast back to its dtype and device. `timeout` bounds that
+    rendezvous only."""
     if world_size <= 1:
         return grads
     from ray_tpu_torch.util import collective
 
-    return collective.get_group(group_name).allreduce_tree(
-        grads, average=True, quantize=quantize)
+    group = collective.get_group(group_name)
+    if hasattr(group, "allreduce_tree"):
+        return group.allreduce_tree(grads, average=True, quantize=quantize)
+    parts = [g.detach().to("cpu", torch.float32).reshape(-1).numpy()
+             for g in _leaves(grads)]
+    fused = np.concatenate(parts) if parts else np.zeros(0, np.float32)
+    group.allreduce(fused, timeout=timeout)
+    fused /= world_size
+    pieces = iter(np.split(fused, np.cumsum([p.size for p in parts])[:-1]))
+    return _tree_map(lambda g: torch.from_numpy(next(pieces).copy()).view(
+        g.shape).to(g.device, g.dtype), grads)
 
 
 def compile_model_train(model_mod, cfg, mesh=None, optimizer=None,

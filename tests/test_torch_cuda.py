@@ -1282,3 +1282,158 @@ def test_serve_disagg_across_cards(cuda):
     assert st["blocks_imported"] > 0, st
     assert sorted(vis for vis, _ in cards) == ["0", "1"]
     assert cards[0][1] != cards[1][1]
+
+
+# the trainer across cards: GPT-2-125M at phase 6's configuration, global
+# batch XC_B at T=XC_T from one Dataset, XC_STEPS steps
+XC_PRESET, XC_B, XC_T, XC_STEPS = "gpt2-125m", 24, 1024, 3
+XC_DEVICE = "cuda"
+
+
+def _xc_corpus():
+    """XC_STEPS global batches of Zipf-ranked tokens over the vocabulary."""
+    from ray_tpu_torch.models import gpt2
+
+    vocab = gpt2.GPT2Config.preset(XC_PRESET).vocab_size
+    rng = np.random.default_rng(18)
+    ranks = rng.zipf(1.2, (XC_B * XC_STEPS, XC_T + 1))
+    return {"tokens": (np.minimum(ranks, vocab) - 1).astype(np.int32)}
+
+
+def _xc_program(preset, mesh=None, device=None):
+    """Phase 6's configuration of `preset` through compile_gpt2_train."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import spmd
+
+    cfg = gpt2.GPT2Config.preset(preset, attn_impl="flash", remat=True,
+                                 remat_policy="dots", ce_chunk=0)
+    opt = spmd.default_optimizer(lr=6e-4, warmup=2, total_steps=1000)
+    return spmd.compile_gpt2_train(cfg, mesh=mesh, optimizer=opt,
+                                   device=device)
+
+
+def _xc_loop(config):
+    """A rank of test_trainer_across_cards, in its worker: the dp mesh over
+    the gang, each step's loss and this process's launches so far."""
+    import importlib
+    import os
+
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from ray_tpu_torch.train import spmd
+
+    importlib.import_module("torch.backends.cuda").matmul.allow_tf32 = False
+    joined = train.maybe_init_distributed()
+    ctx = train.get_context()
+    mesh = build_mesh(MeshConfig(dp=ctx.get_world_size()),
+                      device_type=config["device"])
+    cfg = gpt2.GPT2Config.preset(config["preset"], attn_impl="flash",
+                                 remat=True, remat_policy="dots", ce_chunk=0)
+    prog = spmd.compile_gpt2_train(cfg, mesh=mesh, optimizer=(
+        spmd.default_optimizer(lr=6e-4, warmup=2, total_steps=1000)))
+    state = prog.init_fn(torch.Generator().manual_seed(0))
+    bmesh, placements = prog.batch_sharding
+    kernels = (fa.flash_attention, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    for k in kernels:
+        k.launches = 0
+    hist = []
+    for gi, batch in train.get_dataset_shard("train").iter_global_batches(
+            batch_size=config["batch"]):
+        if gi >= config["steps"]:
+            break
+        rows = torch.from_numpy(np.array(batch["tokens"])).to(prog.device)
+        state, m = prog.step_fn(state, {"tokens": DTensor.from_local(
+            rows, bmesh, placements)})
+        hist.append([float(m["loss"])] + [k.launches for k in kernels])
+    train.report({
+        "hist": hist, "joined": joined, "rank": ctx.get_world_rank(),
+        "local_rank": ctx.get_local_rank(),
+        "current_device": (torch.cuda.current_device()
+                           if torch.cuda.is_available() else None),
+        "program_device": str(prog.device), "pid": os.getpid()})
+
+
+@pytest.mark.cuda
+def test_trainer_across_cards(cuda, tmp_path):
+    # the port's SPMD trainer with two GPU workers of one node over NCCL:
+    # each worker's card is cuda:<local rank> (distinct, the ranks' local
+    # ranks 0 and 1), a dp=2 build_mesh mesh, the global batch of XC_B
+    # rows (XC_B / 2 a rank) from one Dataset; every step's loss within
+    # 0.01 of a world-1 run in this process on the same global batches,
+    # and K1/K2/K3 24/12/12 a step counted in each rank's process
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train.controller import TrainControllerLogic
+    from ray_tpu_torch.train.ingest import DatasetShard
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: a worker a card")
+
+    class Keeping(TrainControllerLogic):
+        reports = {}
+
+        def _drain(self, statuses, group):
+            for rank, st in enumerate(statuses):
+                Keeping.reports.setdefault(rank, []).extend(
+                    r["metrics"] for r in st["reports"])
+            return super()._drain(statuses, group)
+
+    rt.init(num_cpus=8, num_gpus=2)
+    try:
+        ds = rd.from_numpy(_xc_corpus(), parallelism=4).random_shuffle(
+            seed=0)
+        batches = [np.array(b["tokens"]) for gi, b in DatasetShard(
+            ds, 0, 1).iter_global_batches(batch_size=XC_B)][:XC_STEPS]
+        # world 1 in this process, freed before the workers start
+        prog = _xc_program(XC_PRESET, device=XC_DEVICE)
+        state = prog.init_fn(torch.Generator().manual_seed(0))
+        want = []
+        for rows in batches:
+            state, m = prog.step_fn(state, {"tokens": torch.from_numpy(
+                rows).to(XC_DEVICE)})
+            want.append(float(m["loss"]))
+        del prog, state
+        torch.cuda.empty_cache()
+        out = Keeping(
+            _xc_loop, {"device": XC_DEVICE, "preset": XC_PRESET,
+                       "batch": XC_B, "steps": XC_STEPS},
+            train.ScalingConfig(num_workers=2,
+                                use_gpu=XC_DEVICE == "cuda"),
+            train.RunConfig(name="xcards", storage_path=str(tmp_path)),
+            backend=train.SpmdBackend(),
+            datasets={"train": ds}).run()
+    finally:
+        rt.shutdown()
+    assert out["state"] == "FINISHED", out["error"]
+    got = {rank: reps[-1] for rank, reps in Keeping.reports.items()}
+    assert sorted(got) == [0, 1]
+    assert all(g["joined"] for g in got.values())
+    assert [got[r]["local_rank"] for r in (0, 1)] == [0, 1]
+    assert got[0]["pid"] != got[1]["pid"]
+    if XC_DEVICE == "cuda":
+        assert [got[r]["current_device"] for r in (0, 1)] == [0, 1]
+        assert [got[r]["program_device"] for r in (0, 1)] == [
+            "cuda:0", "cuda:1"]
+    from ray_tpu_torch.models import gpt2
+
+    n_layer = gpt2.GPT2Config.preset(XC_PRESET).n_layer
+    gaps = []
+    for rank in (0, 1):
+        hist = got[rank]["hist"]
+        assert len(hist) == XC_STEPS
+        for i, (loss, k1, k2, k3) in enumerate(hist):
+            gaps.append(abs(loss - want[i]))
+            assert gaps[-1] <= 0.01, (rank, i, loss, want[i])
+            assert (k1, k2, k3) == ((i + 1) * 2 * n_layer,
+                                    (i + 1) * n_layer, (i + 1) * n_layer)
+    print(f"trainer across cards: world-1 losses {want}; rank losses "
+          f"{[[h[0] for h in got[r]['hist']] for r in (0, 1)]}; max "
+          f"|dloss| {max(gaps):.3g}")

@@ -3,11 +3,14 @@
 In a fresh interpreter, import every module of ray_tpu_torch and chip_smoke
 (as a module: its main() does not run), then look at sys.modules. The
 runtime's control plane (head, worker, client, API), the compiled DAGs
-(`ray_tpu_torch.dag`) and the serve control plane (`ray_tpu_torch.serve`:
+(`ray_tpu_torch.dag`), the serve control plane (`ray_tpu_torch.serve`:
 controller, proxy, router, handle, api, autoscaling, batching, multiplex,
-live signals, the compiled ingress chain and the gRPC proxy) import no
-torch either, nor grpc (the gRPC proxy imports it when it starts), and the
-processes the runtime starts run the port's own modules.
+live signals, the compiled ingress chain and the gRPC proxy), the data
+plane (`ray_tpu_torch.data`) and the trainer's control plane
+(`ray_tpu_torch.train`: config, checkpoint, ingest, session, worker group,
+controller, trainer, torch_trainer) import no torch either, nor grpc (the
+gRPC proxy imports it when it starts), and the processes the runtime
+starts run the port's own modules.
 """
 
 import os
@@ -62,7 +65,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.parallel.pipeline",
                  "ray_tpu_torch.train.checkpoint",
                  "ray_tpu_torch.train.config", "chip_smoke",
-                 *CORE, *DAG, *SERVE_PLANE, "ray_tpu_torch.util",
+                 *CORE, *DAG, *SERVE_PLANE, *DATA, *TRAIN_PLANE,
+                 "ray_tpu_torch.util",
                  "ray_tpu_torch.util.metrics",
                  "ray_tpu_torch.util.tracing", "ray_tpu_torch.scripts.cli"):
         assert want in res["imported"]
@@ -90,6 +94,18 @@ SERVE_PLANE = ("ray_tpu_torch.serve", *(f"ray_tpu_torch.serve.{m}" for m in (
     "controller", "grpc_proxy", "handle", "live_signals", "multiplex",
     "proxy", "replica")))
 
+# the streaming data plane (host-side numpy; `iter_torch_batches` imports
+# torch when it is called)
+DATA = ("ray_tpu_torch.data", *(f"ray_tpu_torch.data.{m}" for m in (
+    "block", "preprocessors", "shuffle", "executor", "dataset",
+    "read_api")))
+
+# the trainer's control plane (the loop, the backends' joins and `spmd`
+# import torch; these modules do not)
+TRAIN_PLANE = ("ray_tpu_torch.train", *(f"ray_tpu_torch.train.{m}" for m in (
+    "config", "checkpoint", "ingest", "session", "worker_group",
+    "controller", "trainer", "torch_trainer")))
+
 CONTROL_PLANE_PROBE = r"""
 import json, sys
 for name in ("ray_tpu_torch.core.gcs", "ray_tpu_torch.core.head_main",
@@ -98,7 +114,8 @@ for name in ("ray_tpu_torch.core.gcs", "ray_tpu_torch.core.head_main",
              "ray_tpu_torch.util.tracing", "ray_tpu_torch.utils.platform",
              "ray_tpu_torch.dag", "ray_tpu_torch.dag.channel",
              "ray_tpu_torch.dag.nodes", "ray_tpu_torch.dag.runtime",
-             "ray_tpu_torch.dag.compiled", *SERVE_PLANE):
+             "ray_tpu_torch.dag.compiled", *SERVE_PLANE, *DATA,
+             *TRAIN_PLANE):
     __import__(name)
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("torch", "jax", "ray_tpu",
@@ -112,6 +129,7 @@ def test_control_plane_imports_no_torch():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c",
                           f"SERVE_PLANE = {SERVE_PLANE!r}\n"
+                          f"DATA = {DATA!r}\nTRAIN_PLANE = {TRAIN_PLANE!r}\n"
                           + CONTROL_PLANE_PROBE],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
