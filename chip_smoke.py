@@ -233,6 +233,23 @@ Phases, each reported on its own line:
    Across two cards, tests/test_torch_cuda.py::test_trainer_across_cards
    runs two GPU workers over NCCL on a dp=2 mesh (each on its own card,
    cuda:<local rank>) against one card.
+21. Tune and RLlib (phase_tune_rl): (a) the port's Tuner sweeps two
+   learning rates over phase 6's configuration under ASHA (max_t 4,
+   grace 1, reduction 2), two trials of {"CPU": 1, "GPU": 0.5} on the one
+   card at once, one training step an iteration: no trial errors, both
+   trials hold the card at once (each waits for the other's program
+   before its first step), each trial's K1/K2/K3 launches, counted in its
+   own process, exactly iterations x (24, 12, 12), each reported loss
+   within TOL_TRAIN_LOSS of the same steps here at that rate, and
+   get_best_result() the least final loss reported; ASHA's decisions,
+   each trial's first answer, median step against phase 6's and peak
+   memory logged; (b) PPO on CartPole (8 envs x 128 steps, 4 epochs,
+   minibatch 256, lr 3e-4, seed 0) with its learner and in-process
+   runner on the card: the mean return above 60 after 13 iterations and
+   above the first's; one update on a fragment on the card against the
+   same update on the CPU within TOL_PPO_UPDATE (at most PPO_FLIPS
+   parameters past it, each within the sign flips' bound); an
+   iteration's sample and update ms on the card and on the CPU.
 Phase 10 also runs the ring at a ragged chunk (Llama-3-8B widths,
 T=16000 on sp=4: chunks of 4000 padded to 4096, the padded keys masked by
 K1's and K2's kv_len) and holds each padded chunk pair against the plain
@@ -256,14 +273,15 @@ training, llama3-8b's forward, K/V expanded from the KV heads) and times
 that expansion. Phases 4-5 (GPT-2 inference), 5b (the OpenAI server), 6
 (GPT-2 training), 6b's (b) (data-parallel training), 6c's (a) and (c)
 (sharded training), 7, 8, 9, each case of 10, 11, 12 and 13's (b) are
-the main paths: every kernel's launch count is set to 0 before each and read right
-after; in phases 14-20 each actor, task, replica or train worker counts its
-own launches from 0. The line before the last lists the kernels as JSON, with the GPT-2
-training path's counts under "launches", every path's under
-"launches_by_path", the ring's non-causal chunk pair under "ring_chunk",
-its ragged one under "ring_ragged_chunk" and the head dim 80, 256 and 160
-cases under "head_dim_80", "head_dim_256" and "head_dim_160"; the last
-line is {"ok": true, "device": {...}}.
+the main paths: every kernel's launch count is set to 0 before each and
+read right after; in phases 14-21 each actor, task, replica, train worker
+or trial counts its own launches from 0. The line before the last lists
+the kernels as JSON, with the GPT-2 training path's counts under
+"launches", every path's under "launches_by_path", the ring's non-causal
+chunk pair under "ring_chunk", its ragged one under "ring_ragged_chunk"
+and the head dim 80, 256 and 160 cases under "head_dim_80",
+"head_dim_256" and "head_dim_160"; the last line is {"ok": true,
+"device": {...}}.
 Any failure raises and the script exits non-zero without that line. Needs
 one CUDA card; imports nothing of JAX.
 
@@ -5088,6 +5106,12 @@ def _serve_llm(rt, serve_api, card: str, port: int) -> None:
     answers = _concurrent(lambda b: _post(f"{url}/llm", b),
                           [(b,) for b in bodies])
     cold_s = time.perf_counter() - t0
+    # the proxy's view of the replicas' gossiped queue depths may still
+    # be the one each published on admitting the first wave (1 on both):
+    # a tie, which the EWMA tiebreak settles on one replica for both of
+    # the second wave. Such a row counts for 5 s
+    # (`serve_live_signal_max_age_s`); past it the local counts decide
+    time.sleep(5.5)
     answers += _concurrent(lambda b: _post(f"{url}/llm", b),
                            [(b,) for b in bodies])
     errors = [e for _, e in answers if e is not None]
@@ -5112,7 +5136,10 @@ def _serve_llm(rt, serve_api, card: str, port: int) -> None:
         f"through a DeploymentHandle: {handle_ok}; requests answered by "
         f"replica {totals}")
     if not (http_ok and handle_ok):
-        raise AssertionError("(a) tokens differ from the driver's server")
+        raise AssertionError(
+            "(a) tokens differ from the driver's server: HTTP answers "
+            f"equal {[t == ref[i % 2] for i, t in enumerate(http_tokens)]}, "
+            f"handle {handle_ok}")
     if len(totals) != 2 or min(totals.values()) < 1:
         raise AssertionError(f"(a) not both replicas answered: {totals}")
 
@@ -6002,6 +6029,302 @@ def phase_train_service(card: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------- phase 21: Tune and RLlib
+# (a) the sweep: phase 6's rate and half of it, one training step an
+# iteration for up to TUNE_ITERS iterations (ASHA's max_t)
+TUNE_LRS = (6e-4, 3e-4)
+TUNE_ITERS = 4
+TUNE_CPUS = 4
+# (b) PPO at tests/test_rllib.py::test_ppo_learns_cartpole's settings
+PPO_ITERS = 13
+PPO_CPU_ITERS = 3
+PPO_RETURN = 60.0
+# One update on a fragment (4 epochs of 4 minibatches: 16 Adam steps), the
+# card's f32 against the CPU's, TF32 off. Each product of width 64 and each
+# sum over a minibatch of 256 rounds in another order there, about 1e-7
+# relative; through 16 steps the params stay within a few ulps of values
+# of order 1, so TOL_PPO_UPDATE is ten times that. Adam's first steps move
+# a weight by lr * g / (|g| + 1e-8): a gradient within rounding of zero
+# can take the other sign on the other device, and its weight then moves
+# by up to 2 * lr a step the other way. At most PPO_FLIPS parameters (of
+# ~9 k) may so differ, none by more than 2 * lr * 16 steps.
+TOL_PPO_UPDATE = 1e-6
+PPO_FLIPS = 10
+
+
+def _tune_program(lr: float, device) -> tuple:
+    """Phase 6's program at rate `lr` and phase 6's batch on `device`."""
+    cfg = gpt2.GPT2Config.preset(PRESET, attn_impl="flash", remat=True,
+                                 remat_policy="dots", ce_chunk=0)
+    opt = spmd.default_optimizer(lr=lr, warmup=2, total_steps=1000)
+    prog = spmd.compile_model_train(gpt2, cfg, optimizer=opt, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, SEQ + 1),
+                           generator=torch.Generator().manual_seed(1))
+    return prog, {"tokens": tokens.to(device)}
+
+
+def _peak_gb() -> float:
+    if torch.device(DEVICE).type != "cuda":
+        return float("nan")
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _tune_trial(config) -> None:
+    """Phase 21's trainable, run by the Tuner in the trial's process on its
+    half of the card: phase 6's program at config["lr"] from seed 0 on
+    phase 6's batch, one step an iteration. Before its first step it
+    waits until every trial of the sweep has built its program (a file
+    each under config["dir"]), so the trials hold the card at once. Each
+    report: the loss, this process's K1/K2/K3 launches since before the
+    first step, the step's ms, the process's peak memory, its pid and
+    wall times."""
+    from ray_tpu_torch import tune
+
+    ts_enter = time.time()
+    _no_tf32()
+    prog, batch = _tune_program(config["lr"], DEVICE)
+    state = prog.init_fn(torch.Generator().manual_seed(0))
+    open(os.path.join(config["dir"], f"ready_{os.getpid()}"), "w").close()
+    deadline = time.time() + 300
+    while sum(f.startswith("ready_") for f in os.listdir(config["dir"])) \
+            < config["trials"]:
+        if time.time() > deadline:
+            raise TimeoutError("the sweep's other trials never built their "
+                               "programs")
+        time.sleep(0.05)
+    ts_ready = time.time()
+    _zero_counts()
+    for _ in range(TUNE_ITERS):
+        t0 = time.perf_counter()
+        state, m = prog.step_fn(state, batch)
+        loss = float(m["loss"])                    # syncs
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        tune.report({"loss": loss, "launches": _flash_counts(),
+                     "step_ms": step_ms, "peak_gb": _peak_gb(),
+                     "pid": os.getpid(), "ts_enter": ts_enter,
+                     "ts_ready": ts_ready, "ts": time.time()})
+
+
+def _tune_sweep(card: str) -> dict:
+    """(a): the sweep on a runtime with one GPU; returns trial 0's
+    launches."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.core import api as rt_api
+    from ray_tpu_torch.train import RunConfig
+    from ray_tpu_torch.tune import schedulers as sched_lib
+
+    class LoggedASHA(sched_lib.ASHAScheduler):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.log = []
+
+        def on_result(self, trial_id, result):
+            d = super().on_result(trial_id, result)
+            self.log.append((trial_id, result["training_iteration"],
+                             round(result["loss"], 4), d))
+            return d
+
+    cfg = gpt2.GPT2Config.preset(PRESET)
+    per_step = (2 * cfg.n_layer, cfg.n_layer, cfg.n_layer)
+    tmp = tempfile.mkdtemp(prefix="phase21_")
+    asha = LoggedASHA(metric="loss", mode="min", max_t=TUNE_ITERS,
+                      grace_period=1, reduction_factor=2)
+    rt.init(num_cpus=TUNE_CPUS, num_gpus=1)
+    try:
+        t_fit, t0 = time.time(), time.perf_counter()
+        grid = tune.Tuner(
+            tune.with_resources(_tune_trial, {"CPU": 1, "GPU": 0.5}),
+            param_space={"lr": tune.grid_search(list(TUNE_LRS)),
+                         "dir": tmp, "trials": len(TUNE_LRS)},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", scheduler=asha,
+                max_concurrent_trials=len(TUNE_LRS)),
+            run_config=RunConfig(
+                name="phase21", storage_path=os.path.join(tmp, "runs")),
+        ).fit()
+        fit_s = time.perf_counter() - t0
+        _shutdown_runtime(rt, rt_api)
+    finally:
+        if rt.is_initialized():
+            rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        grid.get_dataframe()
+        pandas = "builds the ResultGrid's dataframe"
+    except ImportError:
+        pandas = "is absent (get_dataframe needs it)"
+    log(f"[tune21] fit {fit_s:.1f} s (runtime, two GPU trials, "
+        f"{TUNE_ITERS} iterations at most); pandas {pandas}; ASHA's "
+        f"decisions (trial, iteration, loss, decision): {asha.log}")
+    errors = [r.error for r in grid.results]
+    if any(errors) or len(grid.results) != len(TUNE_LRS):
+        raise AssertionError(f"trial errors: {errors}")
+    windows, launches = [], {}
+    for r in grid.results:
+        h = r.history
+        n = len(h)
+        got = tuple(h[-1]["launches"])
+        want = tuple(n * k for k in per_step)
+        launches[r.trial_id] = got
+        windows.append((h[0]["ts_ready"], h[-1]["ts"]))
+        steps = sorted(x["step_ms"] for x in h[1:]) or [h[0]["step_ms"]]
+        log(f"[tune21] {r.trial_id} lr {r.config['lr']:g}: pid "
+            f"{h[0]['pid']}, {n} iterations, K1/K2/K3 launches {got} "
+            f"(want {want}); first answer {h[0]['ts'] - t_fit:.2f} s after "
+            f"fit() (its trainable entered at {h[0]['ts_enter'] - t_fit:.2f}"
+            f" s, program and params built, the sweep ready at "
+            f"{h[0]['ts_ready'] - t_fit:.2f} s); step "
+            f"{statistics.median(steps):.2f} ms (median after the first) "
+            f"against phase 6's {TRAIN_REF.get('step_ms', float('nan')):.2f}"
+            f" ms; peak memory {h[-1]['peak_gb']:.2f} GB; losses "
+            + " ".join(f"{x['loss']:.4f}" for x in h) + f"; on {card}")
+        if got != want:
+            raise AssertionError(f"{r.trial_id}: launches {got} != {want}")
+    overlap = max(w[0] for w in windows) < min(w[1] for w in windows)
+    log(f"[tune21] the trials' windows (ready, last report) "
+        f"{[(round(a - t_fit, 2), round(b - t_fit, 2)) for a, b in windows]}"
+        f" s: {'overlap' if overlap else 'DISJOINT'}")
+    if not overlap:
+        raise AssertionError("the two trials did not hold the card at once")
+
+    # the same steps here, from the same seed, at each trial's rate
+    d_loss = 0.0
+    for r in grid.results:
+        gc.collect()
+        torch.cuda.empty_cache()
+        prog, batch = _tune_program(r.config["lr"], DEVICE)
+        state = prog.init_fn(torch.Generator().manual_seed(0))
+        here = []
+        for _ in r.history:
+            state, m = prog.step_fn(state, batch)
+            here.append(float(m["loss"]))
+        del state, prog, batch
+        d = max(abs(x["loss"] - y) for x, y in zip(r.history, here))
+        d_loss = max(d_loss, d)
+        log(f"[tune21] {r.trial_id} here: "
+            + " ".join(f"{y:.4f}" for y in here)
+            + f"; max |dloss| {d:.3g} (tol {TOL_TRAIN_LOSS})")
+    if d_loss > TOL_TRAIN_LOSS:
+        raise AssertionError("a trial's losses disagree with this process's")
+    best = grid.get_best_result()
+    least = min(grid.results, key=lambda r: r.metrics["loss"])
+    log(f"[tune21] best {best.trial_id} lr {best.config['lr']:g} loss "
+        f"{best.metrics['loss']:.4f}; least final loss reported "
+        f"{least.trial_id} {least.metrics['loss']:.4f}")
+    if best.metrics["loss"] != least.metrics["loss"]:
+        raise AssertionError("get_best_result() is not the least loss")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches[min(launches)]
+
+
+def _ppo_config(device: str):
+    from ray_tpu_torch.rllib import PPOConfig
+
+    return (PPOConfig().environment("CartPole-v1")
+            .env_runners(num_envs_per_env_runner=8,
+                         rollout_fragment_length=128)
+            .training(num_epochs=4, minibatch_size=256, lr=3e-4)
+            .learners(device=device).debugging(seed=0))
+
+
+def _ppo_timed(algo, iters: int) -> tuple:
+    """`iters` iterations of `algo`, each split into its sample and its
+    update: ([results], [sample s], [update s])."""
+    sample_s, update_s = [], []
+
+    def timed(fn, sink):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)      # numpy out, or metrics read as floats
+            sink.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    algo.env_runner_group.sample = timed(algo.env_runner_group.sample,
+                                         sample_s)
+    algo._ppo_update_on_fragment = timed(algo._ppo_update_on_fragment,
+                                         update_s)
+    results = [algo.train() for _ in range(iters)]
+    return results, sample_s, update_s
+
+
+def _ppo(card: str) -> None:
+    """(b): PPO with the learner on the card."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.core.rl_module import flatten
+
+    _no_tf32()
+    algo = _ppo_config(DEVICE).build()
+    t0 = time.perf_counter()
+    res, sample_s, update_s = _ppo_timed(algo, PPO_ITERS)
+    run_s = time.perf_counter() - t0
+    algo.stop()
+    rets = [r.get("episode_return_mean", float("nan")) for r in res]
+    first = res[0].get("episode_return_mean", 22)
+    ms = lambda xs: 1e3 * statistics.median(xs)
+    log(f"[ppo21] CartPole PPO, learner {algo.learner.device}, "
+        f"{PPO_ITERS} iterations in {run_s:.1f} s: mean return "
+        + " ".join(f"{x:.1f}" for x in rets) + f"; an iteration: sample "
+        f"{ms(sample_s):.1f} ms, update {ms(update_s):.1f} ms (medians); "
+        f"on {card}")
+    if not (rets[-1] > PPO_RETURN and rets[-1] > first):
+        raise AssertionError(f"PPO did not learn CartPole: {rets}")
+
+    # the same iterations on this host's CPU, for the time only
+    cpu = _ppo_config("cpu").build()
+    _, c_sample, c_update = _ppo_timed(cpu, PPO_CPU_ITERS)
+    cpu.stop()
+    speed = ((ms(c_sample) + ms(c_update))
+             / (ms(sample_s) + ms(update_s)))
+    log(f"[ppo21] the same iteration on the CPU ({torch.get_num_threads()}"
+        f" threads): sample {ms(c_sample):.1f} ms, update "
+        f"{ms(c_update):.1f} ms (medians of {PPO_CPU_ITERS}); the card's "
+        f"is {speed:.2f}x as fast")
+
+    # one update on a fragment: the card against the CPU, same start
+    card_algo, cpu_algo = (_ppo_config(DEVICE).build(),
+                           _ppo_config("cpu").build())
+    cpu_algo.learner.set_weights(card_algo.learner.get_weights())
+    frag = card_algo.env_runner_group.sample(128)[0]
+    frag.pop("_metrics")
+    frag.pop("next_obs")
+    mc = card_algo._ppo_update_on_fragment(card_algo.learner, dict(frag),
+                                           np.random.default_rng(0))
+    mp_ = cpu_algo._ppo_update_on_fragment(cpu_algo.learner, dict(frag),
+                                           np.random.default_rng(0))
+    a, b = (np.concatenate([x.ravel() for x in flatten(
+        algo.learner.get_weights()).values()])
+        for algo in (card_algo, cpu_algo))
+    d = np.abs(a - b)
+    far = int((d > TOL_PPO_UPDATE).sum())
+    flip_bound = 2 * 3e-4 * 16
+    card_algo.stop()
+    cpu_algo.stop()
+    log(f"[ppo21] one update on a fragment of 8 x 128, card vs CPU: "
+        f"{a.size} params, max |d| {d.max():.3g}, {far} past "
+        f"{TOL_PPO_UPDATE:g} (at most {PPO_FLIPS}, each <= {flip_bound:g});"
+        f" total_loss {mc['total_loss']:.6f} vs {mp_['total_loss']:.6f}")
+    if far > PPO_FLIPS or d.max() > flip_bound:
+        raise AssertionError("PPO's update on the card disagrees with the "
+                             "CPU's")
+
+
+def phase_tune_rl(card: str) -> dict:
+    """Phase 21: (a) the Tune sweep over GPT-2-125M, two trials sharing
+    the card; (b) PPO with the learner on the card. Returns the launches
+    of a trial, counted in its process."""
+    t0 = time.perf_counter()
+    launches = _tune_sweep(card)
+    log(f"[tune21] part (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _ppo(card)
+    log(f"[ppo21] part (b) {time.perf_counter() - t0:.1f} s")
+    return {f"{PRESET} tune trial": launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6138,6 +6461,13 @@ def main() -> int:
     paths.update(phase_train_service(card))
     log(f"[train20] phase {time.perf_counter() - t0:.1f} s; script so far "
         f"{time.perf_counter() - t_start:.1f} s")
+
+    # Tune and RLlib: each trial's launches, counted in its own process
+    # from 0; PPO launches no kernel of the port
+    t0 = time.perf_counter()
+    paths.update(phase_tune_rl(card))
+    log(f"[tune_rl21] phase {time.perf_counter() - t0:.1f} s; script so "
+        f"far {time.perf_counter() - t_start:.1f} s")
     log(f"[paths] K1/K2/K3 launches by path: {paths}")
 
     # each kernel's records by case: the GPT-2 training path's fill the

@@ -39,6 +39,23 @@ class ChannelError(Exception):
     pass
 
 
+def release_remote(client, addr, name: str) -> None:
+    """Close and unlink a ring that its writer's process holds (the
+    `dag_chan_close` call), then unlink its segment by name here: when
+    that process died the call fails and nobody else would, and when it
+    succeeded the segment is already gone. A segment on another host is
+    not in this host's /dev/shm, so that unlink is a no-op."""
+    try:
+        client.direct_request(addr, "dag_chan_close", name=name,
+                              unlink=True)
+    except Exception:
+        pass
+    try:
+        os.unlink(f"/dev/shm/{name}")
+    except OSError:
+        pass
+
+
 class ChannelClosedError(ChannelError):
     pass
 

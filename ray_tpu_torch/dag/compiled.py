@@ -18,8 +18,10 @@ nodes — host-side PP stage pipelining across machines.
 
 Counterpart of `ray_tpu/dag/compiled.py`. Every ring this driver makes is
 unlinked by `teardown`, the ones it had made in its actors' processes
-too (`dag_chan_close`). When a stage's loop raised, `get` raises that
-error rather than the closed ring it left behind.
+too (`dag_chan_close`), and those of an actor that died by name: the JAX
+package leaves a dead writer's segment behind. When a stage's loop
+raised, `get` raises that error rather than the closed ring it left
+behind.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch.dag.channel import (CHANNEL_PREFIX, Channel,
                                        ChannelClosedError,
-                                       RemoteChannelReader)
+                                       RemoteChannelReader, release_remote)
 from ray_tpu_torch.dag.nodes import (ClassMethodNode, DAGNode, InputNode,
                                      MultiOutputNode)
 
@@ -391,19 +393,17 @@ class CompiledDAG:
                     reader.close()
                 except Exception:
                     pass
-        if self._started:
+        if self._remote_created:
             from ray_tpu_torch.core.api import _global_client
 
             client = _global_client()
             # close writer-hosted channels THROUGH the process-level RPC:
             # it runs on the worker's event loop, so it works even while
-            # the exec loop occupies the actor executor
+            # the exec loop occupies the actor executor. A start that
+            # failed halfway made some of them too; a writer that died
+            # leaves its segment to us
             for addr, name in self._remote_created:
-                try:
-                    client.direct_request(addr, "dag_chan_close",
-                                          name=name, unlink=True)
-                except Exception:
-                    pass
+                release_remote(client, addr, name)
         if kill_actors:
             import ray_tpu_torch
 

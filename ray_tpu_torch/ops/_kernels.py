@@ -13,6 +13,7 @@ import: the first launch builds, or a caller builds every kernel at once with
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -76,7 +77,8 @@ def build_all(names: Optional[list] = None) -> Dict[str, dict]:
     """Build the named kernels (all by default) that are not built yet, one
     ``nvcc`` process per source, started together. Returns `build_info`; a
     library built earlier reports the log of its build, kept beside it."""
-    names = list(KERNELS) if names is None else list(names)
+    # sorted: processes take the build locks below in one order
+    names = sorted(KERNELS if names is None else names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -87,22 +89,36 @@ def build_all(names: Optional[list] = None) -> Dict[str, dict]:
                 with open(f"{out}.log") as f:
                     build_info[name] = {"seconds": 0.0, "log": f.read()}
             continue
+        # one build of a library at a time across processes (two trials
+        # on one card find no library at the same moment): the second
+        # waits here, then finds the library the first built
+        lock = open(f"{out}.lock", "w")
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(out):
+            lock.close()
+            with open(f"{out}.log") as f:
+                build_info[name] = {"seconds": 0.0, "log": f.read()}
+            continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
                os.path.join(CSRC, KERNELS[name][0])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+                       tmp, out, lock)
     failed = []
-    for name, (proc, tmp, out) in procs.items():
+    for name, (proc, tmp, out, lock) in procs.items():
         log, _ = proc.communicate()
         build_info[name] = {"seconds": time.perf_counter() - t0, "log": log}
-        if proc.returncode != 0:
+        if proc.returncode == 0:
+            # the log first, each file renamed into place whole: a
+            # library that exists always has its log beside it
+            with open(f"{tmp}.log", "w") as f:
+                f.write(log)
+            os.replace(f"{tmp}.log", f"{out}.log")
+            os.replace(tmp, out)
+        else:
             failed.append(f"{name}:\n{log}")
-            continue
-        with open(f"{out}.log", "w") as f:
-            f.write(log)
-        os.replace(tmp, out)
+        lock.close()
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return build_info

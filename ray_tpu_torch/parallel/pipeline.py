@@ -1026,6 +1026,7 @@ class CompiledPipeline:
             return
         self._closed = True
         from ray_tpu_torch.core.api import _global_client
+        from ray_tpu_torch.dag.channel import release_remote
 
         self._input.close(unlink=True)
         if isinstance(self._loss_r, type(self._input)):
@@ -1037,11 +1038,7 @@ class CompiledPipeline:
                 pass
         client = _global_client()
         for a, name in self._remote_created:
-            try:
-                client.direct_request(a, "dag_chan_close", name=name,
-                                      unlink=True)
-            except Exception:
-                pass
+            release_remote(client, a, name)
         if kill_actors:
             for s in self.stages:
                 try:

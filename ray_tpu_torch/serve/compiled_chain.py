@@ -296,31 +296,48 @@ class CompiledServeChain:
         except Exception:
             # a dead target mid-warm: release the half-built generation
             # (surviving stages' exec loops exit on channel close)
-            for cd in cdags:
-                try:
-                    cd.teardown()
-                except Exception:
-                    pass
+            self._teardown_all(cdags)
             raise
         with self._lock:
-            self._targets = lane_targets[0]
-            self._lane_targets = lane_targets
-            self._compiled_tagsets = {
-                dep: tuple(sorted(replicas)) for dep, replicas in by_dep}
-            self._actor_ids = {h._actor_id.binary()
-                               for picks in lane_targets
-                               for _, _, h in picks}
-            self._cdags = cdags
-            self._pendqs = [queue.Queue() for _ in range(self.lanes)]
-            self._lane_outstanding = [0] * self.lanes
-            self._lane_rr = 0
-            self.epoch = getattr(_global_client(), "cluster_epoch", None)
-            self.generation += 1
-            self._broken = False
-            self.stats["recompiles"] += 1
+            # shutdown() ran while this (re)compile warmed: it took the
+            # old generation only, so this one is ours to release
+            late = self._shutdown
+            if not late:
+                self._publish(lane_targets, by_dep, cdags)
+        if late:
+            self._teardown_all(cdags)
+            return
         self._log("compiled", generation=self.generation,
                   targets=[[(d, t) for d, t, _h in picks]
                            for picks in lane_targets])
+
+    def _publish(self, lane_targets, by_dep, cdags) -> None:
+        """Make a warmed generation live (under `_lock`)."""
+        from ray_tpu_torch.core.api import _global_client
+
+        self._targets = lane_targets[0]
+        self._lane_targets = lane_targets
+        self._compiled_tagsets = {
+            dep: tuple(sorted(replicas)) for dep, replicas in by_dep}
+        self._actor_ids = {h._actor_id.binary()
+                           for picks in lane_targets
+                           for _, _, h in picks}
+        self._cdags = cdags
+        self._pendqs = [queue.Queue() for _ in range(self.lanes)]
+        self._lane_outstanding = [0] * self.lanes
+        self._lane_rr = 0
+        self.epoch = getattr(_global_client(), "cluster_epoch", None)
+        self.generation += 1
+        self._broken = False
+        self.stats["recompiles"] += 1
+
+    @staticmethod
+    def _teardown_all(cdags) -> None:
+        for cd in cdags:
+            try:
+                cd.teardown()
+            except Exception:
+                pass
 
     def start(self) -> "CompiledServeChain":
         from ray_tpu_torch.core.api import _global_client
@@ -694,11 +711,7 @@ class CompiledServeChain:
         del gen   # fenced generation: superseded by the recompile below
 
         def _teardown_and_recompile():
-            for cd in cdags:
-                try:
-                    cd.teardown()
-                except Exception:
-                    pass
+            self._teardown_all(cdags)
             deadline = time.monotonic() + self.recompile_timeout_s
             while not self._shutdown and time.monotonic() < deadline:
                 try:
@@ -717,11 +730,7 @@ class CompiledServeChain:
                         stale = self._cdags
                         self._cdags = []
                         self._broken = True
-                    for cd in stale:
-                        try:
-                            cd.teardown()
-                        except Exception:
-                            pass
+                    self._teardown_all(stale)
                     time.sleep(0.5)
 
         threading.Thread(target=_teardown_and_recompile, daemon=True,
@@ -890,11 +899,7 @@ class CompiledServeChain:
                 leftovers.extend(e for e in entries if not e.done())
         if leftovers:
             self._dynamic_submit(leftovers)
-        for cd in cdags:
-            try:
-                cd.teardown()
-            except Exception:
-                pass
+        self._teardown_all(cdags)
         # the writer may have been blocked inside execute() and a drainer
         # inside ref.get(); teardown woke them, and their exit/failover
         # paths submit through the dynamic pool — join them ALL before

@@ -211,6 +211,8 @@ class _AsyncRouter:
         self._chain_config: Optional[dict] = None
         self._chain = None
         self._chain_starting = False
+        # set once by shutdown_chain (the proxy stops): no chain after it
+        self._chain_stopped = False
         self._target_replicas = 0
         # requests queued behind a scaled-to-zero deployment; pushed to
         # the controller as the wake-up demand signal
@@ -271,7 +273,8 @@ class _AsyncRouter:
         (compile and warm-up are blocking control-plane work). Until it is
         live, and again whenever it is fenced, requests take the dynamic
         path: the cold-start and failover contract."""
-        if self._chain is not None or self._chain_starting:
+        if (self._chain is not None or self._chain_starting
+                or self._chain_stopped):
             return
         self._chain_starting = True
         cfg = dict(self._chain_config or {})
@@ -290,6 +293,9 @@ class _AsyncRouter:
                     **cfg)
                 chain.start()
                 self._chain = chain
+                if self._chain_stopped:
+                    # shutdown_chain ran while this one compiled
+                    self.shutdown_chain()
             except Exception:
                 # retried on a later refresh (replicas still starting)
                 self._chain_starting = False
@@ -308,6 +314,7 @@ class _AsyncRouter:
                 "stats": dict(chain.stats)}
 
     def shutdown_chain(self) -> None:
+        self._chain_stopped = True
         chain, self._chain = self._chain, None
         self._chain_starting = False
         if chain is not None:

@@ -1437,3 +1437,64 @@ def test_trainer_across_cards(cuda, tmp_path):
     print(f"trainer across cards: world-1 losses {want}; rank losses "
           f"{[[h[0] for h in got[r]['hist']] for r in (0, 1)]}; max "
           f"|dloss| {max(gaps):.3g}")
+
+
+@pytest.mark.cuda
+def test_tune_half_gpu_trials_share_the_card(cuda, tmp_path):
+    # two {"GPU": 0.5} trials of the port's Tuner on a node of one GPU:
+    # both alive at once (each waits for the other's start file before it
+    # runs), each launching K1 on the card in its own process
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig
+
+    import _torch_tune_loops as loops
+    from ray_tpu_torch.models import gpt2
+
+    rt.init(num_cpus=4, num_gpus=1)
+    try:
+        grid = tune.Tuner(
+            tune.with_resources(loops.gpu_trial, {"CPU": 1, "GPU": 0.5}),
+            param_space={"me": tune.grid_search(["a", "b"]),
+                         "dir": str(tmp_path)},
+            tune_config=tune.TuneConfig(metric="met", mode="max",
+                                        max_concurrent_trials=2),
+            run_config=RunConfig(name="card-halves",
+                                 storage_path=str(tmp_path))).fit()
+    finally:
+        rt.shutdown()
+    n_layer = gpt2.GPT2Config.preset("gpt2-tiny").n_layer
+    assert [r.error for r in grid.results] == [None, None]
+    for r in grid.results:
+        m = r.metrics
+        assert m["met"] == 1 and m["finite"], m
+        assert m["device"].startswith("cuda") and m["launches"] == n_layer
+    assert len({r.metrics["pid"] for r in grid.results}) == 2
+
+
+@pytest.mark.cuda
+def test_ppo_update_on_the_card_matches_the_cpu(cuda):
+    # one PPO update on a CartPole fragment (16 Adam steps) with the
+    # learner on the card against the same update on the CPU, from the
+    # same params and fragment: chip_smoke's TOL_PPO_UPDATE and PPO_FLIPS
+    from chip_smoke import PPO_FLIPS, TOL_PPO_UPDATE, _ppo_config
+    from ray_tpu_torch.rllib.core.rl_module import flatten
+
+    card, cpu = _ppo_config("cuda").build(), _ppo_config("cpu").build()
+    assert card.learner.device.type == "cuda"
+    assert card.env_runner_group.local.device.type == "cuda"
+    cpu.learner.set_weights(card.learner.get_weights())
+    frag = card.env_runner_group.sample(128)[0]
+    frag.pop("_metrics")
+    frag.pop("next_obs")
+    mc = card._ppo_update_on_fragment(card.learner, dict(frag),
+                                      np.random.default_rng(0))
+    mp = cpu._ppo_update_on_fragment(cpu.learner, dict(frag),
+                                     np.random.default_rng(0))
+    a, b = (np.concatenate([x.ravel() for x in flatten(
+        algo.learner.get_weights()).values()]) for algo in (card, cpu))
+    d = np.abs(a - b)
+    assert int((d > TOL_PPO_UPDATE).sum()) <= PPO_FLIPS, d.max()
+    assert d.max() <= 2 * 3e-4 * 16
+    assert abs(mc["total_loss"] - mp["total_loss"]) < 1e-4
+    card.stop(); cpu.stop()

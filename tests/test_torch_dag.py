@@ -23,6 +23,7 @@ are all gone from /dev/shm after `teardown`.
 import glob
 import os
 import pickle
+import signal
 import threading
 import time
 
@@ -627,3 +628,37 @@ def test_failing_stage_raises_its_error(cluster):
         cdag.teardown(kill_actors=True)
     assert _rings(cdag) == []
     assert glob.glob(f"/dev/shm/{next(iter(cdag.chan_names.values()))}") == []
+
+
+def test_rings_of_a_sigkilled_stage_are_unlinked(cluster):
+    """A stage's output ring lives in its actor's process. When that
+    process dies by SIGKILL nobody can answer `dag_chan_close`, so the
+    DAG's teardown unlinks the segment by name: no ring of the DAG is left
+    in /dev/shm (the JAX package leaves the dead writer's)."""
+    @ray_tpu_torch.remote
+    class Stage:
+        def pid(self):
+            return os.getpid()
+
+        def fwd(self, x):
+            return x + 1
+
+    a, b = Stage.remote(), Stage.remote()
+    victim = ray_tpu_torch.get(a.pid.remote(), timeout=60)
+    with InputNode() as inp:
+        dag = b.fwd.bind(a.fwd.bind(inp))
+    cdag = dag.experimental_compile()
+    try:
+        assert cdag.execute(1).get(timeout=60) == 3
+        assert len(_rings(cdag)) == 3
+        os.kill(victim, signal.SIGKILL)
+        deadline = time.time() + 30
+        while time.time() < deadline:
+            try:
+                os.kill(victim, 0)
+            except ProcessLookupError:
+                break
+            time.sleep(0.05)
+    finally:
+        cdag.teardown(kill_actors=True)
+    assert _rings(cdag) == []

@@ -224,3 +224,47 @@ def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
     assert second != first
     (tmp_path / "flash_fwd.cu").write_text("// edited\n")
     assert _kernels._lib_path("flash_fwd") not in (first, second)
+
+
+BUILD_PROBE = r"""
+import sys
+from ray_tpu_torch.ops import _kernels
+_kernels.CSRC, _kernels.BUILD_DIR = sys.argv[1], sys.argv[2]
+_kernels._nvcc = lambda: sys.argv[3]
+_kernels.build_all(["flash_fwd"])
+"""
+
+
+def test_two_processes_build_a_library_once(tmp_path):
+    """Two processes that find no library at the same moment (two Tune
+    trials on one card) run one build between them: the second waits on
+    the first's lock, then finds its library and its log."""
+    import os
+    import subprocess
+    import sys
+
+    src, build = tmp_path / "csrc", tmp_path / "build"
+    src.mkdir()
+    (src / "flash_fwd.cu").write_text("// k1\n")
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    # a stand-in compiler: counts its runs, takes a second, writes -o
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f"echo run >> {calls}\n"
+        "sleep 1\n"
+        "while [ $# -gt 0 ]; do\n"
+        "  if [ \"$1\" = -o ]; then echo lib > \"$2\"; fi; shift\n"
+        "done\n"
+        "echo 'ptxas info: 0 bytes spill'\n")
+    nvcc.chmod(0o755)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, "-c", BUILD_PROBE, str(src),
+                               str(build), str(nvcc)], cwd=root)
+             for _ in range(2)]
+    assert [p.wait(timeout=60) for p in procs] == [0, 0]
+    assert calls.read_text().count("run") == 1
+    libs = [f for f in os.listdir(build) if f.endswith(".so")]
+    assert len(libs) == 1
+    assert "spill" in (build / f"{libs[0]}.log").read_text()
+    assert not [f for f in os.listdir(build) if f.endswith(".tmp")]

@@ -8,9 +8,11 @@ controller, proxy, router, handle, api, autoscaling, batching, multiplex,
 live signals, the compiled ingress chain and the gRPC proxy), the data
 plane (`ray_tpu_torch.data`) and the trainer's control plane
 (`ray_tpu_torch.train`: config, checkpoint, ingest, session, worker group,
-controller, trainer, torch_trainer) import no torch either, nor grpc (the
-gRPC proxy imports it when it starts), and the processes the runtime
-starts run the port's own modules.
+controller, trainer, torch_trainer) and Tune (`ray_tpu_torch.tune`: search,
+searcher, schedulers, the BayesOpt, BOHB, Optuna and HyperOpt searchers,
+tuner; a trial's trainable imports torch in the trial) import no torch
+either, nor grpc (the gRPC proxy imports it when it starts), and the
+processes the runtime starts run the port's own modules.
 """
 
 import os
@@ -65,7 +67,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.parallel.pipeline",
                  "ray_tpu_torch.train.checkpoint",
                  "ray_tpu_torch.train.config", "chip_smoke",
-                 *CORE, *DAG, *SERVE_PLANE, *DATA, *TRAIN_PLANE,
+                 *CORE, *DAG, *SERVE_PLANE, *DATA, *TRAIN_PLANE, *TUNE,
+                 *RLLIB,
                  "ray_tpu_torch.util",
                  "ray_tpu_torch.util.metrics",
                  "ray_tpu_torch.util.tracing", "ray_tpu_torch.scripts.cli"):
@@ -106,6 +109,18 @@ TRAIN_PLANE = ("ray_tpu_torch.train", *(f"ray_tpu_torch.train.{m}" for m in (
     "config", "checkpoint", "ingest", "session", "worker_group",
     "controller", "trainer", "torch_trainer")))
 
+# Tune (framework-neutral, as the JAX package's imports no JAX)
+TUNE = ("ray_tpu_torch.tune", *(f"ray_tpu_torch.tune.{m}" for m in (
+    "search", "searcher", "schedulers", "bayesopt_search", "bohb_search",
+    "optuna_search", "hyperopt_search", "tuner")))
+
+# RLlib's core and PPO (they import torch)
+RLLIB = ("ray_tpu_torch.rllib", *(f"ray_tpu_torch.rllib.{m}" for m in (
+    "connectors", "core.rl_module", "core.learner", "core.replay",
+    "env.envs", "env.env_runner", "env.env_runner_group",
+    "algorithms.algorithm_config", "algorithms.algorithm",
+    "algorithms.ppo")))
+
 CONTROL_PLANE_PROBE = r"""
 import json, sys
 for name in ("ray_tpu_torch.core.gcs", "ray_tpu_torch.core.head_main",
@@ -115,7 +130,7 @@ for name in ("ray_tpu_torch.core.gcs", "ray_tpu_torch.core.head_main",
              "ray_tpu_torch.dag", "ray_tpu_torch.dag.channel",
              "ray_tpu_torch.dag.nodes", "ray_tpu_torch.dag.runtime",
              "ray_tpu_torch.dag.compiled", *SERVE_PLANE, *DATA,
-             *TRAIN_PLANE):
+             *TRAIN_PLANE, *TUNE):
     __import__(name)
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("torch", "jax", "ray_tpu",
@@ -130,6 +145,7 @@ def test_control_plane_imports_no_torch():
     out = subprocess.run([sys.executable, "-c",
                           f"SERVE_PLANE = {SERVE_PLANE!r}\n"
                           f"DATA = {DATA!r}\nTRAIN_PLANE = {TRAIN_PLANE!r}\n"
+                          f"TUNE = {TUNE!r}\n"
                           + CONTROL_PLANE_PROBE],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)

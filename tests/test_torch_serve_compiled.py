@@ -156,6 +156,7 @@ def test_chain_actor_sigkill_mid_step_recompiles(cluster):
         victim_pid = serve.get_deployment_handle(deps[1]).options(
             method_name="pid").remote({}).result(timeout=30)
         gen0 = chain.generation
+        rings = _chain_rings(chain)
 
         resps = [chain.submit({"x": i}) for i in range(8)]
         os.kill(victim_pid, signal.SIGKILL)
@@ -180,10 +181,17 @@ def test_chain_actor_sigkill_mid_step_recompiles(cluster):
         assert [r.result(60) for r in resps] == \
             [{"y": (i + 1) * 10} for i in range(8)]
         assert chain.stats["compiled"] > before, (chain.stats, chain.events)
+        rings |= _chain_rings(chain)
     finally:
         chain.shutdown()
         for d in deps:
             serve.delete(d)
+    # both generations' rings are gone, the dead replica's among them
+    assert [n for n in rings if os.path.exists(f"/dev/shm/{n}")] == []
+
+
+def _chain_rings(chain) -> set:
+    return {n for cd in chain._cdags for n in cd.chan_names.values()}
 
 
 # ------------------------------------------------- lanes against JAX's
